@@ -3,32 +3,51 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the main path (the
-static-camera headline frame: seeded scene at 1024^2, 128 rays per pixel,
-AA, blur and exact silhouettes on, denoiser off, hoisted acceleration
-tables) for chained frames through the public entry points, and checks
-the image.  Each phase prints one line; any failure raises (exit code !=
-0).  The line before the last is a JSON object with each kernel's numbers;
-the last line is {"ok": true, "device": {...}}.  Exits non-zero without a
-result when no CUDA device is visible.  Imports nothing of JAX.
+against its plain PyTorch version on the card, and drives the port's two
+paths through the public entry points, checking the images:
+
+* the static-camera headline frame: seeded scene at 1024^2, 128 rays per
+  pixel, AA, blur and exact silhouettes on, denoiser off, hoisted
+  acceleration tables, chained frames;
+* the denoised frame: the same scene at 1920x1088, 8 rays per pixel, with
+  the shipped UNet (weights/denoiser_r3d.msgpack) as a short sequence (first
+  frame, resting frames, a zoom step with a non-zero flow, resting frames),
+  then the same sequence with the analytic denoiser, then progressive
+  passes.
+
+Each phase prints one line; any failure raises (exit code != 0).  The line
+before the last is a JSON object with each kernel's numbers; the last line
+is {"ok": true, "device": {...}}.  Exits non-zero without a result when no
+CUDA device is visible.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
     sys.exit(2)
 
 import raytracingdiffusioncurves_torch as rt  # noqa: E402
-from raytracingdiffusioncurves_torch.models import renderer  # noqa: E402
-from raytracingdiffusioncurves_torch.ops import _build, blur, intersect, trace_cuda  # noqa: E402
+from raytracingdiffusioncurves_torch.models import denoiser, renderer  # noqa: E402
+from raytracingdiffusioncurves_torch.ops import (  # noqa: E402
+    _build,
+    blur,
+    conv_cuda,
+    denoise,
+    flow,
+    intersect,
+    trace_cuda,
+)
 from raytracingdiffusioncurves_torch.utils.scenes import (  # noqa: E402
     portal_weights_scene_xml,
     seeded_scene_xml,
@@ -36,14 +55,22 @@ from raytracingdiffusioncurves_torch.utils.scenes import (  # noqa: E402
 
 SIZE, RPP = 1024, 128
 BAND_ROW, BAND_ROWS = 480, 64
-N_FRAMES = 20
+N_FRAMES = 10
+# The denoised frame: the resolution of BASELINE configs 3 and 4, config 4's
+# rays per pixel, the shipped UNet.
+DN_W, DN_H, DN_RPP = 1920, 1088, 8
+DN_FRAMES = 10
+WEIGHTS = pathlib.Path(__file__).resolve().parent / "weights" / "denoiser_r3d.msgpack"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).  The
 # 67e12 FP32 FLOP/s count a fused multiply-add as two operations; the trace
 # kernel is built with --fmad=false, so each multiply and add it counts
 # below issues as an instruction of its own, at half that rate.
+# The convolution's bound takes the dense bf16 tensor-core rate, 989e12
+# FLOP/s (same data sheet), the fastest the card can do its multiply-adds.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_FP32_UNFUSED_PER_S = PEAK_FP32_PER_S / 2
+PEAK_BF16_TENSOR_PER_S = 989e12
 # Minimal FP32 arithmetic (add, sub, mul, div, sqrt; compares, min/max and
 # integer hash work not counted) of the trace kernel, counted from
 # csrc/trace.cu.  Per (ray, candidate) pair of the exact-silhouette walk:
@@ -74,9 +101,12 @@ def require(cond, what: str):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, reps: int):
+def cuda_ms(fn, reps: int, warm_up: bool = False):
     """(mean milliseconds per call of fn() on the card (CUDA events), the
-    last call's result)."""
+    last call's result).  ``warm_up`` runs fn() once before the timing, for
+    a function's first call in the process (library load, cuBLAS set-up)."""
+    if warm_up:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -133,6 +163,403 @@ def shaded_rays(scene, cam, cfg, tables):
         clean += same.sum()
         graze += (hb & ~same).sum()
     return int(clean), int(graze)
+
+
+def unet_layers(h, w, base=24, cin0=11):
+    """The nine convolutions of the UNet on an (h, w) frame: (name, input
+    height and width as the taps see them, channels per group, Cout, stride,
+    relu, upsample flag per group)."""
+    c = base
+    return [
+        ("enc0a", h, w, (cin0,), c, 1, True, (False,)),
+        ("enc0b", h, w, (c,), c, 1, True, (False,)),
+        ("enc1a", h, w, (c,), 2 * c, 2, True, (False,)),
+        ("enc1b", h // 2, w // 2, (2 * c,), 2 * c, 1, True, (False,)),
+        ("enc2a", h // 2, w // 2, (2 * c,), 4 * c, 2, True, (False,)),
+        ("enc2b", h // 4, w // 4, (4 * c,), 4 * c, 1, True, (False,)),
+        ("dec1", h // 2, w // 2, (4 * c, 2 * c), 2 * c, 1, True, (True, False)),
+        ("dec0", h, w, (2 * c, c), c, 1, True, (True, False)),
+        ("out", h, w, (c,), 3, 1, False, (False,)),
+    ]
+
+
+def conv_close(ref, got, bias):
+    """Kernel vs plain version of the convolution.  Both multiply the same
+    bf16 values; only the order of the float32 sum differs, which moves the
+    rounded accumulator by at most one bf16 step before the bias is added,
+    and the sum with the bias is rounded once more.  Bar: at least 99% of
+    values bitwise equal, none off by more than one step of the accumulator
+    plus one of the result, |diff| <= 2^-7 * (2 |y| + |bias|).  Returns
+    (share equal, largest difference as a share of that bar, max |diff|)."""
+    ref, got = ref.float(), got.float()
+    require(bool(torch.isfinite(got).all()), "finite conv output")
+    d = (ref - got).abs()
+    step = 2.0**-7 * (2.0 * torch.maximum(ref.abs(), got.abs()) + bias.float().abs())
+    steps = float((d / step.clamp_min(1e-30)).max())
+    equal = float((ref == got).float().mean())
+    require(equal >= 0.99, f"conv bitwise-equal share {equal}")
+    require(steps <= 1.0, f"conv off by {steps} of the rounding bar")
+    return equal, steps, float(d.max())
+
+
+def library_conv(xs, ks, b, stride, ups):
+    """The one PyTorch call that computes the layer (F.conv2d on bf16
+    channels_last, bias included), as a closure over inputs laid out for it
+    outside the timing: groups concatenated, upsample materialized, the
+    SAME padding applied.  A yardstick only: the port never calls it."""
+    parts = [x.repeat_interleave(2, 0).repeat_interleave(2, 1) if u else x for x, u in zip(xs, ups)]
+    x = torch.cat(parts, dim=-1)
+    _, top, bottom = conv_cuda.same_padding(x.shape[0], stride)
+    _, left, right = conv_cuda.same_padding(x.shape[1], stride)
+    x = F.pad(x, (0, 0, left, right, top, bottom)).permute(2, 0, 1)[None].contiguous(
+        memory_format=torch.channels_last)
+    k = torch.cat(ks, dim=2).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(x, k, b, stride=stride)
+
+
+def measure_conv(name, kernel_fn, xs, ks, b, stride, relu, ups):
+    """One row of [conv_parity]: ``kernel_fn()`` (an entry point of the
+    kernel on these inputs) against the plain version, timed beside the
+    plain version and the library call, with the card's bound for the
+    layer: 2*9*Cin*Cout*H_out*W_out FLOP at the tensor-core peak, and every
+    input, the kernels, the bias and the output moved once."""
+    before = conv_cuda.LAUNCHES
+    ms, got = cuda_ms(kernel_fn, 5, warm_up=True)
+    require(conv_cuda.LAUNCHES == before + 6, f"{name}: one launch per call")
+    plain_ms, ref = cuda_ms(lambda: conv_cuda.conv3x3_plain(xs, ks, b, stride, relu, ups), 1,
+                            warm_up=True)
+    equal, steps, err = conv_close(ref, got, b)
+    lib_ms, lib_out = cuda_ms(library_conv(xs, ks, b, stride, ups), 5, warm_up=True)
+    lib_out = lib_out[0].permute(1, 2, 0)
+    lib_err = float((torch.relu(lib_out) if relu else lib_out).float().sub(got.float()).abs().max())
+    cins = [x.shape[2] for x in xs]
+    h_out, w_out, cout = got.shape
+    flops = 2 * 9 * sum(cins) * cout * h_out * w_out
+    n_bytes = 2 * (sum(x.numel() for x in xs) + got.numel() + sum(k.numel() for k in ks) + cout)
+    ops_ms = flops / PEAK_BF16_TENSOR_PER_S * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    h_in, w_in = xs[-1].shape[0] << int(ups[-1]), xs[-1].shape[1] << int(ups[-1])
+    phase(f"conv_parity:{name}", shape=f"{h_in}x{w_in}x{'+'.join(map(str, cins))}->{cout}",
+          stride=stride, upsampled=sum(ups), bitwise_equal=f"{equal:.6f}",
+          max_share_of_rounding_bar=f"{steps:.3f}", max_abs_err=f"{err:.3e}",
+          library_max_abs_diff=f"{lib_err:.3e}")
+    return dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, equal=equal,
+                steps=steps, err=err, flops=flops, bytes=n_bytes, ops_ms=ops_ms,
+                bytes_ms=bytes_ms)
+
+
+def conv_phases(net, smi):
+    """[conv_parity] and [conv_bound]: every layer shape of the shipped UNet
+    at the denoised frame's size, and the one-group entry conv3x3_same, on
+    seeded inputs on the card with the shipped weights.  Returns the
+    per-layer rows and the kernels-JSON entry (without launches)."""
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the plain version needs full float32 matmuls (TF32 off)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    rows = []
+    for name, h, w, cins, cout, stride, relu, ups in unet_layers(DN_H, DN_W):
+        layer = getattr(net, name)
+        require(tuple(layer.kernel.shape) == (3, 3, sum(cins), cout), f"{name} kernel shape")
+        ks = [k.contiguous() for k in torch.split(layer.kernel.to(bf), cins, dim=2)]
+        b = layer.bias.to(bf)
+        xs = [torch.randn((h >> int(u), w >> int(u), c), generator=gen, device="cuda").to(bf)
+              for c, u in zip(cins, ups)]
+        rows.append(measure_conv(
+            name, lambda: conv_cuda.conv3x3(xs, ks, b, stride, relu, ups),
+            xs, ks, b, stride, relu, ups))
+    # conv3x3_same, the one-group entry, at a half-size 44 -> 96 layer (the
+    # widest shape of the JAX package's own test of it) with seeded weights
+    x = torch.randn((DN_H // 2, DN_W // 2, 44), generator=gen, device="cuda").to(bf)
+    k = (torch.randn((3, 3, 44, 96), generator=gen, device="cuda") * 0.1).to(bf)
+    b = torch.randn((96,), generator=gen, device="cuda").to(bf)
+    same = measure_conv("conv3x3_same", lambda: conv_cuda.conv3x3_same(x, k, b),
+                        [x], [k], b, 1, True, (False,))
+    del xs, x
+    phase("conv_parity", layers=len(rows) + 1,
+          min_bitwise_equal=f"{min(r['equal'] for r in rows + [same]):.6f}",
+          max_share_of_rounding_bar=f"{max(r['steps'] for r in rows + [same]):.3f}",
+          bar="equal>=0.99,diff<=2^-7*(2|y|+|b|)")
+
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "flops", "bytes",
+                                                  "ops_ms", "bytes_ms")}
+    bound_ms = sum(max(r["ops_ms"], r["bytes_ms"]) for r in rows)
+    for r in rows + [same]:
+        phase(f"conv_bound:{r['name']}", flops=f"{r['flops']:.4e}", bytes=r["bytes"],
+              ops_ms=f"{r['ops_ms']:.4f}", bytes_ms=f"{r['bytes_ms']:.4f}",
+              kernel_ms=f"{r['ms']:.3f}",
+              share_of_bound=f"{max(r['ops_ms'], r['bytes_ms']) / r['ms']:.4f}")
+    phase("conv_bound", flops=f"{total['flops']:.4e}", bytes=total["bytes"],
+          ops_ms=f"{total['ops_ms']:.4f}", bytes_ms=f"{total['bytes_ms']:.4f}",
+          bound_ms=f"{bound_ms:.4f}", kernel_ms=f"{total['ms']:.3f}",
+          share_of_bound=f"{bound_ms / total['ms']:.4f}")
+    entry = {
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "raytracingdiffusioncurves_torch/csrc/conv3x3.cu",
+        "replaces": "raytracingdiffusioncurves_tpu/ops/conv_pallas.py:279",
+        "replaces_also": "raytracingdiffusioncurves_tpu/ops/conv_pallas.py:63",
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": total["ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
+        "library_ms": total["library_ms"],
+        "min_bitwise_equal": min(r["equal"] for r in rows),
+        "max_share_of_rounding_bar": max(r["steps"] for r in rows),
+        "layers": {r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms")} for r in rows},
+        "conv3x3_same": {k: same[k] for k in ("ms", "plain_ms", "library_ms", "err")}
+        | {"bound_ms": max(same["ops_ms"], same["bytes_ms"])},
+        "card": smi,
+    }
+    return rows, entry
+
+
+def timed_frames(step, n):
+    """Run step() n times; (device ms per call from CUDA events, host
+    enqueue ms per call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t_host) * 1e3 / n
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, enqueue_ms
+
+
+def denoised_sequence(label, dscene, cfg, net):
+    """The denoised frame as a short sequence through rt.render_frame: frame
+    0 (no history), a resting frame under the sync check, DN_FRAMES chained
+    resting frames (timed, launches counted), a zoom step (tables rebuilt,
+    history warped by a non-zero flow), resting frames at the new camera.
+    ``net``: the module with the checkpoint's weights on the card, or None
+    for the analytic denoiser.  Returns the numbers of the timed loop."""
+    cam = rt.Camera()
+    tables = rt.build_cand_tables(dscene, cam, cfg)
+    gl = rt.seg_max_count(dscene, tables)
+    kw = dict(denoiser=net, cand_tables=tables, gather_len=gl)
+    holder = {"state": rt.init_frame_state(DN_W, DN_H), "img": None}
+
+    def step():
+        holder["img"], holder["state"] = rt.render_frame(dscene, cam, holder["state"], cfg, **kw)
+
+    step()  # frame 0: no history
+    torch.cuda.synchronize()
+    require(holder["state"].frame == 1 and holder["state"].flow_is_zero, "frame 0 state")
+    # A resting frame queues on the card without waiting for it: any
+    # synchronizing call inside render_frame raises here.
+    torch.cuda.set_sync_debug_mode("error")
+    step()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    trace_cuda.reset_launch_count()
+    conv_cuda.reset_launch_count()
+    frame_ms, enqueue_ms = timed_frames(step, DN_FRAMES)
+    trace_launches, conv_launches = trace_cuda.LAUNCHES, conv_cuda.LAUNCHES
+    want_convs = 9 * DN_FRAMES if net is not None else 0
+    require(trace_launches == DN_FRAMES, f"{label}: trace launches {trace_launches}")
+    require(conv_launches == want_convs, f"{label}: conv launches {conv_launches} != {want_convs}")
+
+    # The last frame again, by hand: prev_image is the denoised un-blurred
+    # frame, the displayed image its blur, the flow all zero.
+    before = holder["state"]
+    step()
+    img, state = holder["img"], holder["state"]
+    raw, bmap = rt.trace_image(dscene, cam, cfg, before.frame, tables, gl)
+    if net is not None:
+        den = rt.apply_denoiser(net, raw, before.prev_image, bmap, mix=cfg.corrected_image_mix,
+                                noise=denoiser.noise_level(cfg.rays_per_pixel), frame=before.frame)
+    else:
+        den = rt.temporal_denoise(raw, before.prev_image, before.flow, before.frame,
+                                  cfg.corrected_image_mix, flow_is_zero=True)
+    require(torch.equal(den, state.prev_image), f"{label}: prev_image is the denoised frame")
+    radius = blur.blur_radius(dscene.max_blur)
+    require(torch.equal(blur.variable_gaussian_blur(den, bmap, radius), img),
+            f"{label}: displayed image is the blurred denoised frame")
+    require(not torch.equal(img, state.prev_image), f"{label}: blur left the frame unchanged")
+    require(img.shape == (DN_H, DN_W, 4) and bool(torch.isfinite(img).all()),
+            f"{label}: finite (H, W, 4) image")
+    require(state.flow_is_zero and not bool(state.flow.any()), f"{label}: flow zero after a frame")
+    raw_err = float((raw[..., :3] - den[..., :3]).abs().mean())
+    require(raw_err > 1e-4, f"{label}: the denoiser changed the frame ({raw_err})")
+    spread = float(img[..., :3].std())
+    require(spread > 0.01, f"{label}: spread {spread}")
+
+    # Zoom step: new camera, tables rebuilt, flow written, history warped.
+    cam = rt.Camera(zoom_factor=0.9)
+    tables = rt.build_cand_tables(dscene, cam, cfg)
+    gl = rt.seg_max_count(dscene, tables)
+    kw.update(cand_tables=tables, gather_len=gl)
+    moved = dataclasses.replace(state, flow=rt.add_zoom_flow(state.flow, 1.0, 0.9))
+    require(not moved.flow_is_zero and bool(moved.flow.any()), f"{label}: zoom flow is non-zero")
+    warped = rt.warp_separable(moved.prev_image, moved.flow)
+    warp_diff = float((warped - moved.prev_image).abs().max())
+    require(warp_diff > 1e-3, f"{label}: warped history differs from the unwarped ({warp_diff})")
+    holder["state"] = moved
+    zoom_ms, _ = timed_frames(step, 1)
+    require(holder["state"].flow_is_zero and not bool(holder["state"].flow.any()),
+            f"{label}: flow zero after the zoom frame")
+    rest_ms, _ = timed_frames(step, 3)
+    require(bool(torch.isfinite(holder["img"]).all()), f"{label}: finite image after the zoom")
+    require(holder["state"].frame == DN_FRAMES + 7, f"{label}: frame counter {holder['state'].frame}")
+    phase(f"denoised_path:{label}", frames=DN_FRAMES, ms_per_frame=f"{frame_ms:.3f}",
+          host_enqueue_ms_per_frame=f"{enqueue_ms:.3f}", no_host_sync=True,
+          trace_launches=trace_launches, conv_launches=conv_launches,
+          conv_launches_per_frame=conv_launches // DN_FRAMES, zoom_frame_ms=f"{zoom_ms:.3f}",
+          frames_after_zoom_ms=f"{rest_ms:.3f}", warp_max_shift=f"{warp_diff:.4f}",
+          mean_change_by_denoiser=f"{raw_err:.5f}", image_std=f"{spread:.4f}",
+          prev_image="denoised_unblurred(bitwise)", flow_after_frame="zero")
+    return dict(frame_ms=frame_ms, enqueue_ms=enqueue_ms, conv_launches=conv_launches,
+                trace_launches=trace_launches, state=holder["state"], cam=cam, tables=tables, gl=gl)
+
+
+def denoised_trace_parity(label, dscene, cam, cfg, frame):
+    """The trace kernel as the denoised frame launches it (whole frame,
+    hoisted lists read up to seg_max_count) against its plain version and
+    against its own full sweep, for one camera.  Same bars as the
+    denoiser-off frame: assert_parity on the normalized image and blur map,
+    lists == full sweep bit for bit."""
+    n_px = DN_W * DN_H
+    tables = rt.build_cand_tables(dscene, cam, cfg)
+    gl = rt.seg_max_count(dscene, tables)
+    geom = trace_cuda._grid_geom(dscene, cfg, DN_W, n_px)
+    kern = trace_cuda.trace_sums_flat(dscene, cam, cfg, frame, 0, n_px, tables, gl)
+    full = trace_cuda.trace_sums_flat(dscene, cam, cfg, frame, 0, n_px, None)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, full):
+        require(torch.equal(a, b), f"denoised frame, {label}: kernel with lists != full sweep")
+    plain_ms, plain = cuda_ms(
+        lambda: trace_cuda.trace_sums_plain(dscene, cam, cfg, frame, 0, n_px, tables), 1)
+    err = parity(normalized(plain, DN_H, DN_W, cfg), normalized(kern, DN_H, DN_W, cfg))
+    sums_err = max(float((a - b).abs().max()) for a, b in zip(plain, kern))
+    require(float(kern[1].sum()) > 0.0, f"denoised frame, {label}: the trace has weight")
+    phase(f"denoised_trace_parity:{label}", rays=n_px * DN_RPP, zoom=cam.zoom_factor, frame=frame,
+          wedges=geom[3], tiles=geom[7], tile=f"{geom[4]}x{trace_cuda.TILE_W}",
+          lists=tuple(tables.ids.shape), gather_len=gl, max_abs_err=f"{err:.3e}",
+          sums_max_abs_err=f"{sums_err:.3e}", lists_eq_full="bitwise", plain_ms=f"{plain_ms:.1f}")
+    return dict(max_abs_err=err, plain_ms=plain_ms)
+
+
+def progressive_sequence(dscene, cfg, net):
+    """render_frame_progressive with the learned denoiser: three
+    accumulating passes, then a reset."""
+    cam = rt.Camera()
+    tables = rt.build_cand_tables(dscene, cam, cfg)
+    gl = rt.seg_max_count(dscene, tables)
+    state = rt.init_frame_state(DN_W, DN_H)
+    prog = rt.init_progressive_state(DN_W, DN_H)
+    sums = []
+    conv_cuda.reset_launch_count()
+    for reset in (True, False, False, True):
+        img, state, prog = rt.render_frame_progressive(
+            dscene, cam, state, prog, cfg, reset, denoiser=net,
+            cand_tables=tables, gather_len=gl)
+        sums.append((prog.passes, float(prog.weight_sum.sum())))
+        require(bool(torch.isfinite(img).all()), "progressive: finite image")
+    require([p for p, _ in sums] == [1, 2, 3, 1], f"progressive passes {sums}")
+    require(2.5 * sums[0][1] < sums[2][1] < 3.5 * sums[0][1], f"three passes accumulate: {sums}")
+    require(0.8 * sums[0][1] < sums[3][1] < 1.2 * sums[0][1], f"reset drops the history: {sums}")
+    require(conv_cuda.LAUNCHES == 36, f"progressive conv launches {conv_cuda.LAUNCHES}")
+    phase("denoised_path:progressive", passes=[p for p, _ in sums],
+          weight_sums=[f"{w:.4e}" for _, w in sums], conv_launches=conv_cuda.LAUNCHES)
+
+
+def denoise_phases(smi):
+    """The denoised frame: [conv_parity], [conv_bound], [denoise_parity],
+    [denoised_trace_parity], [denoised_path], [denoise_breakdown].  Returns
+    the kernels-JSON entry of the convolution kernel and the trace kernel's
+    numbers at this frame's shape."""
+    t0 = time.perf_counter()
+    dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, DN_W, DN_H)))
+    net = rt.net_for_params(rt.load_params(str(WEIGHTS)))  # built once, on the card
+    require(isinstance(net, rt.UNetDenoiser) and net.base == 24, "shipped weights: UNet, base 24")
+    cfg = rt.RenderConfig(rays_per_pixel=DN_RPP)  # the defaults: denoiser, AA, blur, exact on
+    require(cfg.use_denoiser and cfg.use_blur and cfg.use_aa and cfg.exact_silhouettes,
+            "default config")
+    torch.cuda.synchronize()
+    phase("denoise_setup", seconds=f"{time.perf_counter() - t0:.3f}", size=f"{DN_W}x{DN_H}",
+          rpp=DN_RPP, weights=WEIGHTS.name,
+          params=sum(p.numel() for p in net.parameters()))
+
+    rows, entry = conv_phases(net, smi)
+
+    # --- the trace kernel at this frame's own launch shape (non-square, 8
+    # rays per pixel, default rays_per_block), at both cameras of the
+    # sequence ---
+    trace_rest = denoised_trace_parity("rest", dscene, rt.Camera(), cfg, 0)
+    trace_zoom = denoised_trace_parity("zoom", dscene, rt.Camera(zoom_factor=0.9), cfg, 13)
+    phase("denoised_trace_parity", size=f"{DN_W}x{DN_H}", rpp=DN_RPP,
+          max_abs_err=f"{max(trace_rest['max_abs_err'], trace_zoom['max_abs_err']):.3e}",
+          lists_eq_full="bitwise", cameras="rest,zoom0.9")
+
+    learned = denoised_sequence("learned", dscene, cfg, net)
+    analytic = denoised_sequence("analytic", dscene, cfg, None)
+    progressive_sequence(dscene, cfg, net)
+    phase("denoised_path", learned_ms_per_frame=f"{learned['frame_ms']:.3f}",
+          analytic_ms_per_frame=f"{analytic['frame_ms']:.3f}",
+          conv_launches_per_frame=learned["conv_launches"] // DN_FRAMES)
+
+    # --- apply_denoiser on a traced frame: kernel route vs plain route ---
+    state, cam, tables, gl = (learned[k] for k in ("state", "cam", "tables", "gl"))
+    raw, bmap = rt.trace_image(dscene, cam, cfg, state.frame, tables, gl)
+    noise = denoiser.noise_level(DN_RPP)
+    args = (net, raw, state.prev_image, bmap, 1.0, noise, state.frame)
+    a = denoiser._apply_denoiser(*args, conv_cuda.conv3x3)
+    b = denoiser._apply_denoiser(*args, conv_cuda.conv3x3_plain)
+    # The network's output is a bf16 residual: where a layer's accumulator
+    # moved by a step, single values of it move by one bf16 step, 3.9e-3
+    # below 1 and 7.8e-3 from 1 to 2.  Bar: max below 1e-2, fewer than 1e-4
+    # of values above 5e-3, mean below 1e-4.
+    d = (a - b).abs()
+    dmax, dmean, dbig = float(d.max()), float(d.mean()), float((d > 5e-3).float().mean())
+    require(bool(torch.isfinite(a).all()) and dmax < 1e-2 and dbig < 1e-4 and dmean < 1e-4,
+            f"apply_denoiser kernel route vs plain route: max {dmax} mean {dmean} "
+            f"share above 5e-3 {dbig}")
+    phase("denoise_parity", size=f"{DN_W}x{DN_H}", max_abs_diff=f"{dmax:.3e}",
+          mean_abs_diff=f"{dmean:.3e}", share_above_5e3=f"{dbig:.3e}",
+          share_equal=f"{float((a == b).float().mean()):.6f}",
+          bar="max<1e-2,share(>5e-3)<1e-4,mean<1e-4")
+
+    # --- where the denoised frame's time goes (each stage timed alone) ---
+    n_px = DN_W * DN_H
+    trace_ms, _ = cuda_ms(lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, tables, gl), 5)
+    zoomed = rt.add_zoom_flow(state.flow, 1.0, 0.9)
+    warp_ms, _ = cuda_ms(lambda: flow.warp_separable(state.prev_image, zoomed), 3)
+    bil_ms, spatial = cuda_ms(lambda: denoise.spatial_bilateral(raw[..., :3]), 3)
+    prev = state.prev_image[..., :3]
+    analytic_img = prev + (spatial - prev) * denoise.TEMPORAL_ALPHA
+    aux = torch.stack([bmap, torch.full_like(bmap, noise)], dim=-1)
+    unet_ms, _ = cuda_ms(lambda: net(raw[None, ..., :3], prev[None], aux[None], analytic_img[None]), 3)
+    whole_ms, den = cuda_ms(lambda: denoiser._apply_denoiser(*args, conv_cuda.conv3x3), 3)
+    radius = blur.blur_radius(dscene.max_blur)
+    blur_ms, _ = cuda_ms(lambda: blur.variable_gaussian_blur(den, bmap, radius), 3)
+    tden_ms, _ = cuda_ms(lambda: denoise.temporal_denoise(raw, state.prev_image, state.flow,
+                                                          state.frame, 1.0, True), 3)
+    phase("denoise_breakdown", trace_ms=f"{trace_ms:.3f}", warp_ms=f"{warp_ms:.3f}",
+          bilateral_ms=f"{bil_ms:.3f}", unet_ms=f"{unet_ms:.3f}",
+          convs_ms=f"{sum(r['ms'] for r in rows):.3f}", apply_denoiser_ms=f"{whole_ms:.3f}",
+          temporal_denoise_ms=f"{tden_ms:.3f}", blur_ms=f"{blur_ms:.3f}", blur_radius=radius,
+          **{f"{r['name']}_ms": f"{r['ms']:.3f}" for r in rows})
+    phase("denoise_breakdown:library", call="F.conv2d(bf16,channels_last)",
+          total_ms=f"{sum(r['library_ms'] for r in rows):.3f}",
+          **{f"{r['name']}_ms": f"{r['library_ms']:.3f}" for r in rows})
+    phase("denoise_breakdown:plain", total_ms=f"{sum(r['plain_ms'] for r in rows):.1f}",
+          **{f"{r['name']}_ms": f"{r['plain_ms']:.1f}" for r in rows})
+
+    entry.update(launches=learned["conv_launches"],
+                 launches_per_frame=learned["conv_launches"] // DN_FRAMES,
+                 denoised_frame_ms=learned["frame_ms"],
+                 denoised_host_enqueue_ms=learned["enqueue_ms"],
+                 analytic_frame_ms=analytic["frame_ms"],
+                 denoise_parity_max_abs_diff=dmax, unet_ms=unet_ms)
+    trace_entry = dict(denoised_launches=learned["trace_launches"],
+                       denoised_max_abs_err=trace_rest["max_abs_err"],
+                       denoised_zoom_max_abs_err=trace_zoom["max_abs_err"],
+                       denoised_ms=trace_ms, denoised_plain_ms=trace_rest["plain_ms"])
+    return entry, trace_entry
 
 
 def main():
@@ -277,6 +704,8 @@ def main():
           bytes=n_bytes, ops_ms=f"{ops_ms:.4f}", bytes_ms=f"{bytes_ms:.4f}",
           share_of_bound=f"{bound_ms / trace_ms:.4f}")
 
+    conv_entry, denoised_trace = denoise_phases(smi)
+
     print(json.dumps({"kernels": [{
         "name": "trace",
         "route": "cuda",
@@ -296,7 +725,7 @@ def main():
         "frame_ms": frame_ms,
         "build_s": build_s,
         "card": smi,
-    }]}), flush=True)
+    } | denoised_trace, conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -5,26 +5,49 @@ The same renderer as the JAX package ``raytracingdiffusioncurves_tpu``
 (which stays the reference the port is held against): Orzan-XML scene
 loading, per-pixel stratified ray fans against cubic Bezier diffusion
 curves, endcaps, portal curves, per-curve weight/weight-degree and
-per-pixel variable Gaussian blur.  The trace runs in a hand-written CUDA
-kernel (``csrc/trace.cu``, built with nvcc at first use); every entry point
-runs on the card unless the caller passes ``device="cpu"``, which selects
-the plain PyTorch version of each kernel.  The denoiser is not ported yet.
+per-pixel variable Gaussian blur, the temporal denoiser (analytic, or the
+shipped learned networks) and progressive refinement.  The trace and the
+denoiser networks' 3x3 convolutions run in hand-written CUDA kernels
+(``csrc/trace.cu``, ``csrc/conv3x3.cu``, built with nvcc at first use);
+every entry point runs on the card unless the caller passes
+``device="cpu"``, which selects the plain PyTorch version of each kernel.
 
 Quick start::
 
     import raytracingdiffusioncurves_torch as rtdc
     scene = rtdc.load_scene("arch.xml")
     dev = rtdc.build_device_scene(scene)            # on the card
-    cfg = rtdc.RenderConfig(rays_per_pixel=128, use_denoiser=False)
-    image, blur_map = rtdc.trace_image(dev, rtdc.Camera(), cfg)
+    cfg = rtdc.RenderConfig(rays_per_pixel=8)       # denoiser on by default
+    net = rtdc.net_for_params(rtdc.load_params("weights/denoiser_r3d.msgpack"))
+    state = rtdc.init_frame_state(dev.width, dev.height)
+    image, state = rtdc.render_frame(dev, rtdc.Camera(), state, cfg,
+                                     denoiser=net)
     rtdc.save_image(image, "out.png")
 """
 
 from .config import Camera, RenderConfig
-from .models.renderer import FrameState, init_frame_state, render_frame, trace_image
+from .models.denoiser import (
+    DenoiserNet,
+    UNetDenoiser,
+    apply_denoiser,
+    net_for_params,
+    params_from_jax,
+)
+from .models.renderer import (
+    FrameState,
+    ProgressiveState,
+    init_frame_state,
+    init_progressive_state,
+    render_frame,
+    render_frame_progressive,
+    trace_image,
+)
+from .ops.denoise import spatial_bilateral, temporal_denoise
+from .ops.flow import add_translation_flow, add_zoom_flow, warp_by_flow, warp_separable, zero_flow
 from .ops.trace_cuda import build_cand_tables, seg_max_count
 from .scene.device import DeviceScene, build_device_scene, from_jax_arrays
 from .scene.xml_loader import SceneTables, load_scene, load_scene_from_string
+from .utils.checkpoint import load_params
 from .utils.image import psnr, save_image, to_uint8
 
 __all__ = [
@@ -33,6 +56,9 @@ __all__ = [
     "SceneTables",
     "DeviceScene",
     "FrameState",
+    "ProgressiveState",
+    "DenoiserNet",
+    "UNetDenoiser",
     "load_scene",
     "load_scene_from_string",
     "build_device_scene",
@@ -41,10 +67,23 @@ __all__ = [
     "seg_max_count",
     "trace_image",
     "render_frame",
+    "render_frame_progressive",
     "init_frame_state",
+    "init_progressive_state",
+    "load_params",
+    "net_for_params",
+    "params_from_jax",
+    "apply_denoiser",
+    "spatial_bilateral",
+    "temporal_denoise",
+    "zero_flow",
+    "add_zoom_flow",
+    "add_translation_flow",
+    "warp_separable",
+    "warp_by_flow",
     "save_image",
     "to_uint8",
     "psnr",
 ]
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

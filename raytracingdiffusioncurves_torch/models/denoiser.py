@@ -1,0 +1,217 @@
+"""Learned denoiser (inference): the residual CNN and the UNet of the JAX
+package as ``nn.Module``s, on the hand-written 3x3 convolution kernel.
+
+The reference leans on OptiX's *trained* temporal denoiser model
+(OPTIX_DENOISER_MODEL_KIND_TEMPORAL, optixHello.cpp:1057).  The analytic
+temporal/bilateral pass (ops/denoise.py) covers the blend semantics; the
+networks here predict a residual correction on top of it.  Weights come from
+the shipped checkpoints (``utils/checkpoint.load_params`` +
+``net_for_params``); training is not ported.
+
+The modules compute the networks as the JAX package's flax modules define
+them (``UNetDenoiser.__call__``), on NHWC bf16 tensors with float32
+parameters cast to bf16 per call.  The JAX package's inference route
+(``apply_unet_flat``: space-to-depth packing, a ring-padded flat layout,
+pre-summed phase kernels) is a TPU layout of the same network and is not
+carried over.  Every convolution goes through ``ops/conv_cuda.conv3x3``:
+the CUDA kernel on the card, its plain version on the CPU.  The decoder's
+channel concats are input groups of that kernel, and its nearest 2x
+upsamples are read inside the kernel: neither is ever written to memory.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import conv_cuda
+from ..ops import denoise as denoise_ops
+from ..utils.devices import resolve_device
+
+BF16 = torch.bfloat16
+
+
+def analytic_baseline(noisy: torch.Tensor, warped_prev: torch.Tensor) -> torch.Tensor:
+    """The analytic temporal pass on already-warped history
+    (ops/denoise.py temporal_denoise with the warp factored out): bilateral +
+    temporal blend, for one (H, W, 3) image."""
+    spatial = denoise_ops.spatial_bilateral(noisy)
+    return warped_prev + (spatial - warped_prev) * denoise_ops.TEMPORAL_ALPHA
+
+
+class Conv3x3(nn.Module):
+    """One SAME 3x3 convolution layer: float32 ``kernel`` (3, 3, Cin, Cout)
+    in the JAX package's HWIO layout and ``bias`` (Cout,), applied in bf16.
+    ``groups``: channel counts of the input groups the kernel is split into
+    along Cin (a concat [a, b] is the groups (Ca, Cb))."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, relu: bool = True,
+                 groups: tuple[int, ...] | None = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(3, 3, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.stride, self.relu = stride, relu
+        self.groups = tuple(groups) if groups is not None else (cin,)
+        if sum(self.groups) != cin:
+            raise ValueError(f"groups {self.groups} do not add up to {cin} input channels")
+
+    def forward(self, xs, conv: Callable = conv_cuda.conv3x3, upsample=None):
+        k = self.kernel.to(BF16)
+        ks = [part.contiguous() for part in torch.split(k, self.groups, dim=2)]
+        return conv(xs, ks, self.bias.to(BF16), self.stride, self.relu, upsample)
+
+
+class _ResidualDenoiser(nn.Module):
+    """Shared batch handling: ``forward(noisy, warped_prev, aux, analytic)``
+    on (N, H, W, C) float32 tensors, as the flax modules' ``__call__``;
+    returns ``analytic + residual`` (N, H, W, 3) float32.  ``conv`` is the
+    convolution function (default: the dispatching ``conv3x3``)."""
+
+    def forward(self, noisy, warped_prev, aux, analytic=None,
+                conv: Callable = conv_cuda.conv3x3):
+        outs = []
+        for i in range(noisy.shape[0]):
+            base = analytic[i] if analytic is not None else analytic_baseline(
+                noisy[i], warped_prev[i])
+            x = torch.cat([noisy[i], warped_prev[i], base, aux[i]], dim=-1).to(BF16)
+            outs.append(base + self.residual(x, conv).to(torch.float32))
+        return torch.stack(outs)
+
+
+class DenoiserNet(_ResidualDenoiser):
+    """Residual CNN on top of the analytic temporal pass: ``depth`` hidden
+    3x3 layers of ``features`` channels with ReLU, then a 3-channel layer.
+    ``aux`` carries the blur map plus a constant noise-level channel
+    (1/sqrt(rpp)), so one set of weights serves every rays-per-pixel
+    setting.  Layer names follow the flax module's (``Conv_0`` ...)."""
+
+    def __init__(self, features: int = 32, depth: int = 5, in_channels: int = 11):
+        super().__init__()
+        self.features, self.depth = features, depth
+        cin = in_channels
+        for i in range(depth):
+            setattr(self, f"Conv_{i}", Conv3x3(cin, features))
+            cin = features
+        setattr(self, f"Conv_{depth}", Conv3x3(cin, 3, relu=False))
+
+    def residual(self, x, conv):
+        for i in range(self.depth + 1):
+            x = getattr(self, f"Conv_{i}")([x], conv)
+        return x
+
+
+class UNetDenoiser(_ResidualDenoiser):
+    """Multi-scale residual denoiser: an encoder/decoder with skips, two
+    stride-2 downsamples (receptive field ~40 px), nearest 2x upsamples.
+    Same interface and residual-on-analytic design as DenoiserNet.  Input H
+    and W must be multiples of 4 (apply_denoiser pads and crops)."""
+
+    def __init__(self, base: int = 24, in_channels: int = 11):
+        super().__init__()
+        c = self.base = base
+        self.enc0a = Conv3x3(in_channels, c)
+        self.enc0b = Conv3x3(c, c)
+        self.enc1a = Conv3x3(c, 2 * c, stride=2)
+        self.enc1b = Conv3x3(2 * c, 2 * c)
+        self.enc2a = Conv3x3(2 * c, 4 * c, stride=2)
+        self.enc2b = Conv3x3(4 * c, 4 * c)
+        # concat order of the flax module: [up(x), skip]
+        self.dec1 = Conv3x3(6 * c, 2 * c, groups=(4 * c, 2 * c))
+        self.dec0 = Conv3x3(3 * c, c, groups=(2 * c, c))
+        self.out = Conv3x3(c, 3, relu=False)
+
+    def residual(self, x, conv):
+        if x.shape[0] % 4 or x.shape[1] % 4:
+            raise ValueError(f"UNet input size {tuple(x.shape[:2])} must be a multiple of 4")
+        e0 = self.enc0b([self.enc0a([x], conv)], conv)
+        e1 = self.enc1b([self.enc1a([e0], conv)], conv)
+        e2 = self.enc2b([self.enc2a([e1], conv)], conv)
+        d1 = self.dec1([e2, e1], conv, upsample=(True, False))
+        d0 = self.dec0([d1, e0], conv, upsample=(True, False))
+        return self.out([d0], conv)
+
+
+def noise_level(rays_per_pixel) -> float:
+    """Monte-Carlo noise scale of a render: ~1/sqrt(rpp)."""
+    return float(1.0 / math.sqrt(float(rays_per_pixel)))
+
+
+def params_from_jax(params) -> dict[str, torch.Tensor]:
+    """The JAX package's parameter tree (``{"params": {layer: {"kernel":
+    (3, 3, Cin, Cout), "bias": (Cout,)}}}``, numpy float32) as the state
+    dict of the matching module: ``<layer>.kernel`` and ``<layer>.bias``,
+    HWIO kept."""
+    state = {}
+    for layer, leaves in params["params"].items():
+        for leaf in ("kernel", "bias"):
+            state[f"{layer}.{leaf}"] = torch.tensor(np.asarray(leaves[leaf], np.float32))
+    return state
+
+
+def net_for_params(params, device=None) -> nn.Module:
+    """The module whose architecture matches a loaded checkpoint, with the
+    checkpoint's weights, on ``device`` (None = CUDA): UNet checkpoints carry
+    explicitly named layers ("enc0a", ...); plain stacks carry auto-numbered
+    "Conv_i" (depth = hidden layers, features = their channel count)."""
+    layers = params["params"]
+    if "enc0a" in layers:
+        kernel = layers["enc0a"]["kernel"]
+        net = UNetDenoiser(base=int(kernel.shape[-1]), in_channels=int(kernel.shape[2]))
+    else:
+        kernel = layers["Conv_0"]["kernel"]
+        depth = sum(1 for k in layers if k.startswith("Conv_")) - 1
+        net = DenoiserNet(features=int(kernel.shape[-1]), depth=depth,
+                          in_channels=int(kernel.shape[2]))
+    net.load_state_dict(params_from_jax(params))
+    return net.to(resolve_device(device)).requires_grad_(False)
+
+
+def _reflect_pad(v: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """(H, W, C) reflect-padded by ph rows below and pw columns right."""
+    return F.pad(v.permute(2, 0, 1)[None], (0, pw, 0, ph), mode="reflect")[0].permute(1, 2, 0)
+
+
+def _apply_denoiser(model, image, warped_prev, blur_map, mix, noise, frame, conv):
+    """apply_denoiser with the convolution function named: ``conv3x3`` (the
+    dispatch) on every normal call, ``conv3x3_plain`` where a check holds the
+    kernel route against the plain one on the same device."""
+    aux = torch.stack([blur_map, torch.full_like(blur_map, float(noise))], dim=-1)
+    noisy = image[..., :3]
+    prev = warped_prev[..., :3]
+    spatial = denoise_ops.spatial_bilateral(noisy)
+    if frame is not None and frame <= 0:
+        prev = spatial
+    analytic = prev + (spatial - prev) * denoise_ops.TEMPORAL_ALPHA
+    # UNet strides need H, W divisible by 4: reflect-pad, predict, crop.
+    h, w = noisy.shape[:2]
+    ph, pw = (-h) % 4, (-w) % 4
+    args = [noisy, prev, aux, analytic]
+    if (ph or pw) and isinstance(model, UNetDenoiser):
+        args = [_reflect_pad(v, ph, pw) for v in args]
+    pred = model(*[v[None] for v in args], conv=conv)[0, :h, :w]
+    alpha = torch.ones(image.shape[:2] + (1,), dtype=torch.float32, device=image.device)
+    denoised = torch.cat([pred, alpha], dim=-1)
+    return denoised + (image - denoised) * (1.0 - mix)
+
+
+def apply_denoiser(
+    model: nn.Module,
+    image: torch.Tensor,
+    warped_prev: torch.Tensor,
+    blur_map: torch.Tensor,
+    mix: float = 1.0,
+    noise: float = 0.0,
+    frame: int | None = None,
+) -> torch.Tensor:
+    """Inference wrapper matching the blendFactor semantics
+    (optixHello.cpp:1131): mix=1 -> fully denoised.  ``model`` holds its
+    weights (net_for_params).  ``frame`` is a host int: on frame 0 there is
+    no history, so the warped-previous input falls back to the bilateral of
+    the current frame (the analytic pass does the same, ops/denoise.py)."""
+    return _apply_denoiser(model, image, warped_prev, blur_map, mix, noise, frame,
+                           conv_cuda.conv3x3)

@@ -8,10 +8,13 @@ edited source rebuilds and an unchanged one loads at once.  ``build_all``
 starts one nvcc per source, all at once.  A failed build raises with the
 compiler's output.
 
-Flags: ``sm_90a`` (Hopper), ``--fmad=false`` and no fast math, so every
-multiply and add rounds on its own, as in the plain PyTorch version; IEEE
-division and square root are nvcc's defaults.  ``-Xptxas -v`` writes each
-kernel's registers, shared memory and spills to the build log.
+Flags: ``sm_90a`` (Hopper) and no fast math for every source; IEEE division
+and square root are nvcc's defaults; ``-Xptxas -v`` writes each kernel's
+registers, shared memory and spills to the build log.  Each source adds its
+own flags (``SOURCE_FLAGS``): the trace kernel builds with ``--fmad=false``
+so that every multiply and add rounds on its own, as in its plain PyTorch
+version; the convolution's products are exact in float32, so it keeps nvcc's
+fused multiply-add.
 
 This module is imported only by code that launches a kernel: the CPU tests
 never need nvcc.
@@ -29,11 +32,16 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = [
+COMMON_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Flags of one source only, by its stem.
+SOURCE_FLAGS = {
+    "trace": ["--fmad=false"],
+    "conv3x3": [],
+}
 
 # ctypes signatures of each library's C entry points.
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -47,6 +55,20 @@ SIGNATURES = {
              _I, _I, _I,  # rpp, sw, n_wedges
              _F, _F, _F, _U, _U,  # zoom, off_x, off_y, frame, seed
              _I, _I, _I, _I, _F,  # use_aa, save, exact, n_traces, min_hit
+             _P],  # stream
+            _I,
+        ),
+        "rtdc_error_string": ([_I], ctypes.c_char_p),
+    },
+    "conv3x3": {
+        "rtdc_conv3x3": (
+            [_P, _P, _P,  # group inputs (unused groups: None)
+             _P, _P, _P,  # group kernels
+             _I, _I, _I,  # channels per group
+             _I, _I, _I, _I,  # nearest-2x upsample per group, number of groups
+             _P, _P,  # bias, out
+             _I, _I, _I, _I, _I,  # h_in, w_in, h_out, w_out, cout
+             _I, _I, _I, _I,  # stride, pad_top, pad_left, relu
              _P],  # stream
             _I,
         ),
@@ -66,9 +88,13 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_flags(name: str) -> list[str]:
+    return [*COMMON_FLAGS, *SOURCE_FLAGS[name]]
+
+
 def _lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -84,7 +110,7 @@ def build_all(names: list[str] | None = None) -> dict[str, pathlib.Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, time.perf_counter(),
