@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each kernel
-against its plain PyTorch version on the card, and drives the port's two
+against its plain PyTorch version on the card, and drives the port's three
 paths through the public entry points, checking the images:
 
 * the static-camera headline frame: seeded scene at 1024^2, 128 rays per
@@ -13,7 +13,15 @@ paths through the public entry points, checking the images:
   the shipped UNet (weights/denoiser_r3d.msgpack) as a short sequence (first
   frame, resting frames, a zoom step with a non-zero flow, resting frames),
   then the same sequence with the analytic denoiser, then progressive
-  passes.
+  passes;
+* the dense-scene frame (BASELINE config 3): a generated line drawing of
+  the lady_bug class (1536 padded sub-segments) at 1920x1088, 256 rays per
+  pixel, the default config with the shipped UNet: capped distance-ordered
+  candidate lists with a per-ray exit and the horizon fallback into the
+  sorted chunk lists, held against the kernel's own full sweep bit for bit
+  and against the plain version; also a dolphin-class scene (7360) at 64
+  rays per pixel, the chunk-lists-only kind, and the lady_bug-class scene
+  at 8 rays per pixel (two wedges, where no ray leaves its list early).
 
 Each phase prints one line; any failure raises (exit code != 0).  The line
 before the last is a JSON object with each kernel's numbers; the last line
@@ -49,6 +57,7 @@ from raytracingdiffusioncurves_torch.ops import (  # noqa: E402
     trace_cuda,
 )
 from raytracingdiffusioncurves_torch.utils.scenes import (  # noqa: E402
+    dense_scene_xml,
     portal_weights_scene_xml,
     seeded_scene_xml,
 )
@@ -60,6 +69,10 @@ N_FRAMES = 10
 # rays per pixel, the shipped UNet.
 DN_W, DN_H, DN_RPP = 1920, 1088, 8
 DN_FRAMES = 10
+# The dense-scene frame: BASELINE config 3's size and rays per pixel on the
+# lady_bug-class scene; the dolphin-class scene at 64 rays per pixel.
+DENSE_RPP, DENSE_RPP_DOLPHIN, DENSE_FRAMES = 256, 64, 5
+DENSE_TILE_ROWS = 32  # rows of one pixel tile at both dense launch shapes
 WEIGHTS = pathlib.Path(__file__).resolve().parent / "weights" / "denoiser_r3d.msgpack"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).  The
 # 67e12 FP32 FLOP/s count a fused multiply-add as two operations; the trace
@@ -329,18 +342,19 @@ def timed_frames(step, n):
     return start.elapsed_time(end) / n, enqueue_ms
 
 
-def denoised_sequence(label, dscene, cfg, net):
-    """The denoised frame as a short sequence through rt.render_frame: frame
-    0 (no history), a resting frame under the sync check, DN_FRAMES chained
+def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoised_path"):
+    """A denoised frame as a short sequence through rt.render_frame: frame
+    0 (no history), a resting frame under the sync check, n_frames chained
     resting frames (timed, launches counted), a zoom step (tables rebuilt,
     history warped by a non-zero flow), resting frames at the new camera.
     ``net``: the module with the checkpoint's weights on the card, or None
     for the analytic denoiser.  Returns the numbers of the timed loop."""
+    w, h = dscene.width, dscene.height
     cam = rt.Camera()
     tables = rt.build_cand_tables(dscene, cam, cfg)
     gl = rt.seg_max_count(dscene, tables)
     kw = dict(denoiser=net, cand_tables=tables, gather_len=gl)
-    holder = {"state": rt.init_frame_state(DN_W, DN_H), "img": None}
+    holder = {"state": rt.init_frame_state(w, h), "img": None}
 
     def step():
         holder["img"], holder["state"] = rt.render_frame(dscene, cam, holder["state"], cfg, **kw)
@@ -357,16 +371,21 @@ def denoised_sequence(label, dscene, cfg, net):
 
     trace_cuda.reset_launch_count()
     conv_cuda.reset_launch_count()
-    frame_ms, enqueue_ms = timed_frames(step, DN_FRAMES)
+    frame_ms, enqueue_ms = timed_frames(step, n_frames)
     trace_launches, conv_launches = trace_cuda.LAUNCHES, conv_cuda.LAUNCHES
-    want_convs = 9 * DN_FRAMES if net is not None else 0
-    require(trace_launches == DN_FRAMES, f"{label}: trace launches {trace_launches}")
+    want_convs = 9 * n_frames if net is not None else 0
+    require(trace_launches == n_frames, f"{label}: trace launches {trace_launches}")
     require(conv_launches == want_convs, f"{label}: conv launches {conv_launches} != {want_convs}")
 
     # The last frame again, by hand: prev_image is the denoised un-blurred
     # frame, the displayed image its blur, the flow all zero.
+    # Its host time is that of enqueueing one frame into an empty launch
+    # queue (the timed loop ended with a synchronize): the host's own cost,
+    # where the loop's figure includes waiting for a full queue.
     before = holder["state"]
+    t_host = time.perf_counter()
     step()
+    drained_ms = (time.perf_counter() - t_host) * 1e3
     img, state = holder["img"], holder["state"]
     raw, bmap = rt.trace_image(dscene, cam, cfg, before.frame, tables, gl)
     if net is not None:
@@ -380,7 +399,7 @@ def denoised_sequence(label, dscene, cfg, net):
     require(torch.equal(blur.variable_gaussian_blur(den, bmap, radius), img),
             f"{label}: displayed image is the blurred denoised frame")
     require(not torch.equal(img, state.prev_image), f"{label}: blur left the frame unchanged")
-    require(img.shape == (DN_H, DN_W, 4) and bool(torch.isfinite(img).all()),
+    require(img.shape == (h, w, 4) and bool(torch.isfinite(img).all()),
             f"{label}: finite (H, W, 4) image")
     require(state.flow_is_zero and not bool(state.flow.any()), f"{label}: flow zero after a frame")
     raw_err = float((raw[..., :3] - den[..., :3]).abs().mean())
@@ -390,8 +409,12 @@ def denoised_sequence(label, dscene, cfg, net):
 
     # Zoom step: new camera, tables rebuilt, flow written, history warped.
     cam = rt.Camera(zoom_factor=0.9)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
     tables = rt.build_cand_tables(dscene, cam, cfg)
     gl = rt.seg_max_count(dscene, tables)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t_build
     kw.update(cand_tables=tables, gather_len=gl)
     moved = dataclasses.replace(state, flow=rt.add_zoom_flow(state.flow, 1.0, 0.9))
     require(not moved.flow_is_zero and bool(moved.flow.any()), f"{label}: zoom flow is non-zero")
@@ -404,16 +427,20 @@ def denoised_sequence(label, dscene, cfg, net):
             f"{label}: flow zero after the zoom frame")
     rest_ms, _ = timed_frames(step, 3)
     require(bool(torch.isfinite(holder["img"]).all()), f"{label}: finite image after the zoom")
-    require(holder["state"].frame == DN_FRAMES + 7, f"{label}: frame counter {holder['state'].frame}")
-    phase(f"denoised_path:{label}", frames=DN_FRAMES, ms_per_frame=f"{frame_ms:.3f}",
-          host_enqueue_ms_per_frame=f"{enqueue_ms:.3f}", no_host_sync=True,
+    require(holder["state"].frame == n_frames + 7, f"{label}: frame counter {holder['state'].frame}")
+    phase(f"{path}:{label}", frames=n_frames, ms_per_frame=f"{frame_ms:.3f}",
+          host_enqueue_ms_per_frame=f"{enqueue_ms:.3f}",
+          host_enqueue_ms_one_frame_queue_empty=f"{drained_ms:.3f}", no_host_sync=True,
           trace_launches=trace_launches, conv_launches=conv_launches,
-          conv_launches_per_frame=conv_launches // DN_FRAMES, zoom_frame_ms=f"{zoom_ms:.3f}",
+          conv_launches_per_frame=conv_launches // n_frames, zoom_frame_ms=f"{zoom_ms:.3f}",
+          zoom_tables_rebuild_s=f"{rebuild_s:.3f}",
           frames_after_zoom_ms=f"{rest_ms:.3f}", warp_max_shift=f"{warp_diff:.4f}",
           mean_change_by_denoiser=f"{raw_err:.5f}", image_std=f"{spread:.4f}",
           prev_image="denoised_unblurred(bitwise)", flow_after_frame="zero")
-    return dict(frame_ms=frame_ms, enqueue_ms=enqueue_ms, conv_launches=conv_launches,
-                trace_launches=trace_launches, state=holder["state"], cam=cam, tables=tables, gl=gl)
+    return dict(frame_ms=frame_ms, enqueue_ms=enqueue_ms, drained_ms=drained_ms,
+                conv_launches=conv_launches,
+                trace_launches=trace_launches, state=holder["state"], cam=cam, tables=tables, gl=gl,
+                zoom_ms=zoom_ms, rebuild_s=rebuild_s)
 
 
 def denoised_trace_parity(label, dscene, cam, cfg, frame):
@@ -553,6 +580,7 @@ def denoise_phases(smi):
                  launches_per_frame=learned["conv_launches"] // DN_FRAMES,
                  denoised_frame_ms=learned["frame_ms"],
                  denoised_host_enqueue_ms=learned["enqueue_ms"],
+                 denoised_host_enqueue_queue_empty_ms=learned["drained_ms"],
                  analytic_frame_ms=analytic["frame_ms"],
                  denoise_parity_max_abs_diff=dmax, unet_ms=unet_ms)
     trace_entry = dict(denoised_launches=learned["trace_launches"],
@@ -560,6 +588,293 @@ def denoise_phases(smi):
                        denoised_zoom_max_abs_err=trace_zoom["max_abs_err"],
                        denoised_ms=trace_ms, denoised_plain_ms=trace_rest["plain_ms"])
     return entry, trace_entry
+
+
+# ---------------------------------------------------------------------------
+# the dense-scene frame
+# ---------------------------------------------------------------------------
+
+
+def dense_setup(kind, rpp):
+    """[dense_setup]: the generated scene of one class on the card with its
+    full-frame tables at the rest camera; asserts the premise (a list
+    overflows, so the horizon fallback has work)."""
+    t0 = time.perf_counter()
+    dscene = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, DN_W, DN_H, kind)))
+    cfg = rt.RenderConfig(rays_per_pixel=rpp)  # the defaults: denoiser, AA, blur, exact on
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    accel = trace_cuda.accel_kind(dscene, cfg)
+    require(accel == "seg", f"{kind}: segment lists, got {accel}")
+    cand_len = trace_cuda._cand_len_for(dscene.s_pad)
+    t0 = time.perf_counter()
+    tables = rt.build_cand_tables(dscene, rt.Camera(), cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(rt.seg_max_count(dscene, tables) is None, f"{kind}: capped lists are not narrowed")
+    counts = tables.counts
+    over = float((counts > cand_len).float().mean())
+    require(int(counts.max()) > cand_len, f"{kind}: no cell overflows cand_len {cand_len}")
+    require(tables.ids.shape[-1] == cand_len and tables.chunk_ids is not None,
+            f"{kind}: capped lists with chunk lists")
+    geom = trace_cuda._grid_geom(dscene, cfg, DN_W, DN_W * DN_H)
+    require(geom[4] == DENSE_TILE_ROWS, f"{kind}: tile height {geom[4]}")
+    phase(f"dense_setup:{kind}", n_sub=dscene.n_sub, s_pad=dscene.s_pad,
+          chunks=dscene.chunk_bounds.shape[0], kind=accel, cand_len=cand_len,
+          tiles=geom[7], wedges=geom[3], samples_per_wedge=geom[2],
+          mean_count=f"{float(counts.clamp(max=cand_len).float().mean()):.2f}",
+          max_count=int(counts.max()), cells_past_cand_len=f"{over:.4f}",
+          mean_chunks=f"{float(tables.chunk_counts.float().mean()):.2f}",
+          hazard_slots=f"{float((tables.lbs == 0.0).float().sum(-1).mean()):.2f}",
+          key_slack_max=f"{float(tables.circle[3]):.3f}", table_bytes=tables.nbytes,
+          scene_seconds=f"{scene_s:.3f}", build_seconds=f"{build_s:.3f}")
+    return dscene, cfg, tables, build_s
+
+
+def dense_band_parity(label, dscene, cfg, cam, frame, row0, rows, plain_rows, whole=None,
+                      need_fallback=False):
+    """Kernel with the band's own tables vs the kernel's full sweep on
+    ``rows`` rows from ``row0`` (bitwise), and vs the plain version on the
+    first ``plain_rows`` of them (assert_parity bars).  ``whole``: sums of
+    the whole frame at this camera and frame; the band must equal its rows
+    of them bitwise (tiles align: row0 is a multiple of the tile height).
+    ``need_fallback``: the band's counting launch must show rays that
+    continued into the chunk lists."""
+    w = dscene.width
+    px0, n_band = row0 * w, rows * w
+    tabs = trace_cuda.build_cand_tables(dscene, cam, cfg, px0, n_band)
+    kern = trace_cuda.trace_sums_flat(dscene, cam, cfg, frame, px0, n_band, tabs)
+    sweep_ms, full = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, frame, px0, n_band, None), 1)
+    for a, b in zip(kern, full):
+        require(torch.equal(a, b), f"dense {label}: kernel with lists != kernel full sweep")
+    if whole is not None:
+        for a, b in zip(kern, whole):
+            require(torch.equal(a, b[px0:px0 + n_band]),
+                    f"dense {label}: band launch != its rows of the whole-frame launch")
+    n_plain = plain_rows * w
+    ptabs = tabs if plain_rows == rows else trace_cuda.build_cand_tables(dscene, cam, cfg, px0, n_plain)
+    plain_ms, plain = cuda_ms(
+        lambda: trace_cuda.trace_sums_plain(dscene, cam, cfg, frame, px0, n_plain, ptabs), 1)
+    kern_p = tuple(a[:n_plain] for a in kern)
+    err = parity(normalized(plain, plain_rows, w, cfg), normalized(kern_p, plain_rows, w, cfg))
+    sums_err = max(float((a - b).abs().max()) for a, b in zip(plain, kern_p))
+    require(float(kern[1].sum()) > 0.0, f"dense {label}: the band has weight")
+    st = trace_cuda.trace_walk_stats(dscene, cam, cfg, frame, px0, n_band, tabs)
+    require(not need_fallback or st["fallback_rays"] > 0,
+            f"dense {label}: no ray entered the chunk fallback")
+    cand_len = tabs.ids.shape[-1]
+    phase(f"dense_parity:{label}", zoom=cam.zoom_factor, frame=frame, rows=f"{row0}+{rows}",
+          rays=n_band * cfg.rays_per_pixel, lists_eq_full="bitwise",
+          cells_past_cand_len=f"{float((tabs.counts > cand_len).float().mean()):.4f}",
+          slots_per_ray=f"{st['list_slots'] / max(st['live_rays'], 1):.2f}",
+          fallback_rays=st["fallback_rays"],
+          fallback_share=f"{st['fallback_rays'] / max(st['live_rays'], 1):.5f}",
+          chunks_per_fallback_ray=f"{st['chunks'] / max(st['fallback_rays'], 1):.2f}",
+          full_sweep_ms=f"{sweep_ms:.1f}", plain_rows=plain_rows,
+          plain_rays=n_plain * cfg.rays_per_pixel, max_abs_err=f"{err:.3e}",
+          sums_max_abs_err=f"{sums_err:.3e}", plain_ms=f"{plain_ms:.1f}")
+    return dict(max_abs_err=err, plain_ms=plain_ms, plain_rays=n_plain * cfg.rays_per_pixel)
+
+
+def dense_stats(label, dscene, cfg, cam, tables, trace_ms, need_fallback):
+    """[dense_stats] and [dense_bound] of one full-frame launch: the
+    counting instantiation's totals, and the card's least time for that
+    work: operations at the unfused FP32 rate (OPS_* above: per pair tested,
+    per ray of a non-empty cell, per clean hit, per graze), and bytes: the
+    scene's rows, the table entries the walks read (per cell the mean prefix
+    of ids and lbs its rays tested, chunk entries alike, counts and
+    horizons) and the output."""
+    n_px = dscene.width * dscene.height
+    st = trace_cuda.trace_walk_stats(dscene, cam, cfg, 0, 0, n_px, tables)
+    rays = n_px * cfg.rays_per_pixel
+    live = st["live_rays"]
+    require(0 < live <= rays, f"{label}: live rays {live}")
+    require(not need_fallback or st["fallback_rays"] > 0,
+            f"{label}: no ray entered the chunk fallback")
+    require(st["clean_hits"] + st["grazes"] > 0.5 * rays, f"{label}: most rays hit something")
+    pairs = st["list_slots"] + st["chunk_pairs"]
+    cells = tables.counts.numel()
+    phase(f"dense_stats:{label}", rays=rays, live_rays=live,
+          slots_per_ray=f"{st['list_slots'] / live:.2f}",
+          fallback_share=f"{st['fallback_rays'] / live:.5f}",
+          chunks_per_fallback_ray=f"{st['chunks'] / max(st['fallback_rays'], 1):.2f}",
+          pairs_per_ray=f"{pairs / live:.2f}", pairs=f"{pairs:.4e}",
+          full_sweep_pairs=f"{rays * dscene.n_sub:.4e}",
+          hits=st["clean_hits"] + st["grazes"], grazes=st["grazes"],
+          hit_share=f"{(st['clean_hits'] + st['grazes']) / rays:.4f}")
+    ops = (OPS_PER_PAIR * pairs + OPS_PER_RAY * live + OPS_PER_HIT * st["clean_hits"]
+           + OPS_PER_GRAZE * st["grazes"])
+    table_read = cells * (8 * st["list_slots"] / live + 8 * st["chunks"] / live + 12)
+    n_bytes = ((dscene.seg_consts.numel() + dscene.shade_all_t.numel()) * 4 + table_read
+               + 5 * n_px * 4)
+    ops_ms, bytes_ms = ops / PEAK_FP32_UNFUSED_PER_S * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    phase(f"dense_bound:{label}", fp32_ops=f"{ops:.4e}", walk_ops=f"{OPS_PER_PAIR * pairs:.4e}",
+          raygen_ops=f"{OPS_PER_RAY * live:.4e}",
+          shade_ops=f"{OPS_PER_HIT * st['clean_hits'] + OPS_PER_GRAZE * st['grazes']:.4e}",
+          bytes=int(n_bytes), table_bytes_read=int(table_read), ops_ms=f"{ops_ms:.4f}",
+          bytes_ms=f"{bytes_ms:.4f}", bound_ms=f"{bound_ms:.4f}", kernel_ms=f"{trace_ms:.3f}",
+          share_of_bound=f"{bound_ms / trace_ms:.4f}",
+          pairs_per_s=f"{pairs / (trace_ms * 1e-3):.4e}")
+    return dict(bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                slots_per_ray=st["list_slots"] / live, fallback_share=st["fallback_rays"] / live)
+
+
+def dense_few_wedges(dscene, cam):
+    """[dense_few_wedges]: the dense scene at the denoised frame's 8 rays
+    per pixel, two wedges of half a turn: every chord is parallel to some
+    ray of its wedge, so the key guard bounds every slot with 0 and no ray
+    leaves its list early — the guard's worst case, timed against the
+    kernel's full sweep of the same launch."""
+    cfg = rt.RenderConfig(rays_per_pixel=DN_RPP)
+    n_px = dscene.width * dscene.height
+    require(trace_cuda.accel_kind(dscene, cfg) == "seg", "few wedges: segment lists")
+    tables = rt.build_cand_tables(dscene, cam, cfg)
+    ms, kern = cuda_ms(lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, tables), 3)
+    sweep_ms, full = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, None), 3)
+    for a, b in zip(kern, full):
+        require(torch.equal(a, b), "few wedges: kernel with lists != kernel full sweep")
+    st = trace_cuda.trace_walk_stats(dscene, cam, cfg, 0, 0, n_px, tables)
+    live = max(st["live_rays"], 1)
+    pairs_per_ray = (st["list_slots"] + st["chunk_pairs"]) / live
+    cand_len = tables.ids.shape[-1]
+    phase("dense_few_wedges", rpp=DN_RPP, wedges=tables.ids.shape[1], rays=n_px * DN_RPP,
+          lists_eq_full="bitwise", kernel_ms=f"{ms:.3f}", full_sweep_ms=f"{sweep_ms:.3f}",
+          slots_per_ray=f"{st['list_slots'] / live:.2f}",
+          fallback_share=f"{st['fallback_rays'] / live:.5f}",
+          chunks_per_fallback_ray=f"{st['chunks'] / max(st['fallback_rays'], 1):.2f}",
+          pairs_per_ray=f"{pairs_per_ray:.2f}", full_sweep_pairs_per_ray=dscene.n_sub,
+          cells_past_cand_len=f"{float((tables.counts > cand_len).float().mean()):.4f}",
+          hazard_slots=f"{float((tables.lbs == 0.0).float().sum(-1).mean()):.2f}",
+          table_bytes=tables.nbytes)
+    return dict(ms=ms, sweep_ms=sweep_ms, pairs_per_ray=pairs_per_ray)
+
+
+def dense_phases():
+    """The dense-scene frame: [dense_setup], [dense_parity], [dense_path],
+    [dense_breakdown], [dense_stats], [dense_bound].  Returns the trace
+    kernel's dense_* numbers for the kernels JSON."""
+    net = rt.net_for_params(rt.load_params(str(WEIGHTS)))
+    cam, zoomed = rt.Camera(), rt.Camera(zoom_factor=0.9)
+    n_px = DN_W * DN_H
+
+    # --- lady_bug class, 256 rays per pixel: BASELINE config 3 ---
+    dscene, cfg, tables, build_s = dense_setup("lady_bug", DENSE_RPP)
+    require(cfg.use_denoiser and cfg.use_blur and cfg.use_aa and cfg.exact_silhouettes,
+            "default config")
+    # (a) the whole frame: lists == the kernel's own full sweep, bit for bit
+    kern = trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, tables)
+    sweep_ms, full = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, None), 1)
+    for a, b in zip(kern, full):
+        require(torch.equal(a, b), "dense frame: kernel with lists != kernel full sweep")
+    differing = int((kern[1] != full[1]).sum())
+    phase("dense_parity:lady_bug_frame", rays=n_px * DENSE_RPP, lists_eq_full="bitwise",
+          differing_pixels=differing, full_sweep_ms=f"{sweep_ms:.1f}",
+          full_sweep_pairs=f"{n_px * DENSE_RPP * dscene.n_sub:.4e}")
+    del full
+    # (b) two tile rows vs the plain version, at both cameras of the sequence
+    band0 = 16 * DENSE_TILE_ROWS
+    rest = dense_band_parity("lady_bug_rest", dscene, cfg, cam, 0, band0, 2 * DENSE_TILE_ROWS,
+                             2 * DENSE_TILE_ROWS, whole=kern)
+    zoom = dense_band_parity("lady_bug_zoom", dscene, cfg, zoomed, 7, band0, 2 * DENSE_TILE_ROWS,
+                             2 * DENSE_TILE_ROWS)
+    del kern
+    # A zoomed-out view (the drawing a third of the frame wide): tiles cover
+    # nine times the area and see the whole drawing inside one wedge, so
+    # many more lists overflow than at the rest camera, where only the cells
+    # that see the aphid from afar do.
+    dense_band_parity("lady_bug_wide", dscene, cfg, rt.Camera(zoom_factor=3.0), 3, band0,
+                      2 * DENSE_TILE_ROWS, DENSE_TILE_ROWS, need_fallback=True)
+
+    # --- the frame through the public entry points ---
+    seq = denoised_sequence("learned", dscene, cfg, net, DENSE_FRAMES, "dense_path")
+    require(seq["trace_launches"] == DENSE_FRAMES and seq["conv_launches"] == 9 * DENSE_FRAMES,
+            "dense path: 1 trace and 9 conv launches per frame")
+
+    # --- where the dense frame's time goes (each stage timed alone) ---
+    trace_ms, sums = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, tables), 3)
+    raw, bmap = normalized(sums, DN_H, DN_W, cfg)
+    state = seq["state"]
+    noise = denoiser.noise_level(DENSE_RPP)
+    den_ms, den = cuda_ms(lambda: rt.apply_denoiser(net, raw, state.prev_image, bmap, mix=1.0,
+                                                    noise=noise, frame=state.frame), 3)
+    radius = blur.blur_radius(dscene.max_blur)
+    blur_ms, _ = cuda_ms(lambda: blur.variable_gaussian_blur(den, bmap, radius), 3)
+    phase("dense_breakdown", trace_ms=f"{trace_ms:.3f}", apply_denoiser_ms=f"{den_ms:.3f}",
+          blur_ms=f"{blur_ms:.3f}", blur_radius=radius,
+          frame_ms=f"{seq['frame_ms']:.3f}", host_enqueue_ms=f"{seq['enqueue_ms']:.3f}",
+          host_enqueue_ms_queue_empty=f"{seq['drained_ms']:.3f}",
+          trace_share_of_frame=f"{trace_ms / seq['frame_ms']:.4f}",
+          rays_per_s=f"{n_px * DENSE_RPP / (trace_ms * 1e-3):.4e}",
+          table_build_seconds=f"{build_s:.3f}")
+    lb_stats = dense_stats("lady_bug", dscene, cfg, cam, tables, trace_ms, need_fallback=True)
+    path = {k: seq[k] for k in ("frame_ms", "enqueue_ms", "drained_ms", "zoom_ms", "rebuild_s",
+                                "trace_launches")}
+    del tables, sums, raw, bmap, den, seq, state
+    few = dense_few_wedges(dscene, cam)
+
+    # (d) chunk lists only: more than 64 wedges, no segment lists
+    cscene = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, 256, 256, "lady_bug")))
+    ccfg = rt.RenderConfig(rays_per_pixel=512, use_denoiser=False)
+    require(trace_cuda.accel_kind(cscene, ccfg) == "chunk", "chunk lists only at 128 wedges")
+    ctabs = rt.build_cand_tables(cscene, cam, ccfg)
+    require(ctabs.ids is None and ctabs.chunk_ids is not None, "chunk kind: chunk lists alone")
+    c_n = 256 * 256
+    c_ms, ck = cuda_ms(lambda: trace_cuda.trace_sums_flat(cscene, cam, ccfg, 0, 0, c_n, ctabs), 1)
+    c_sweep_ms, cf = cuda_ms(lambda: trace_cuda.trace_sums_flat(cscene, cam, ccfg, 0, 0, c_n, None), 1)
+    for a, b in zip(ck, cf):
+        require(torch.equal(a, b), "chunk kind: kernel with chunk lists != kernel full sweep")
+    c_rows = 64
+    cband = trace_cuda.build_cand_tables(cscene, cam, ccfg, 0, c_rows * 256)
+    c_plain_ms, cp = cuda_ms(
+        lambda: trace_cuda.trace_sums_plain(cscene, cam, ccfg, 0, 0, c_rows * 256, cband), 1)
+    c_err = parity(normalized(cp, c_rows, 256, ccfg),
+                   normalized(tuple(a[:c_rows * 256] for a in ck), c_rows, 256, ccfg))
+    cst = trace_cuda.trace_walk_stats(cscene, cam, ccfg, 0, 0, c_n, ctabs)
+    phase("dense_parity:chunk_kind", s_pad=cscene.s_pad, size="256x256", rpp=512,
+          wedges=ctabs.chunk_ids.shape[1], lists_eq_full="bitwise", max_abs_err=f"{c_err:.3e}",
+          kernel_ms=f"{c_ms:.3f}", full_sweep_ms=f"{c_sweep_ms:.3f}", plain_ms=f"{c_plain_ms:.1f}",
+          plain_rows=c_rows, chunks_per_ray=f"{cst['chunks'] / max(cst['live_rays'], 1):.2f}",
+          mean_chunks_listed=f"{float(ctabs.chunk_counts.float().mean()):.2f}")
+    del cscene, ctabs, ck, cf, cp, cband
+
+    # --- dolphin class, 64 rays per pixel: the dense block geometry ---
+    dol, dcfg, dtabs, dol_build_s = dense_setup("dolphin", DENSE_RPP_DOLPHIN)
+    require(dol.s_pad > trace_cuda.DENSE_SPAD, "dolphin class: dense block geometry")
+    # (c) eight tile rows vs the full sweep, one of them vs the plain version
+    dol_par = dense_band_parity("dolphin", dol, dcfg, cam, 0, band0, 8 * DENSE_TILE_ROWS,
+                                DENSE_TILE_ROWS, need_fallback=True)
+    dol_ms, _ = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(dol, cam, dcfg, 0, 0, n_px, dtabs), 3)
+    phase("dense_breakdown:dolphin", trace_ms=f"{dol_ms:.3f}", rpp=DENSE_RPP_DOLPHIN,
+          rays_per_s=f"{n_px * DENSE_RPP_DOLPHIN / (dol_ms * 1e-3):.4e}",
+          table_build_seconds=f"{dol_build_s:.3f}")
+    dol_stats = dense_stats("dolphin", dol, dcfg, cam, dtabs, dol_ms, need_fallback=True)
+
+    band_rays = rest["plain_rays"]
+    return dict(
+        dense_launches=path["trace_launches"], dense_ms=trace_ms, dense_frame_ms=path["frame_ms"],
+        dense_host_enqueue_ms=path["enqueue_ms"],
+        dense_host_enqueue_queue_empty_ms=path["drained_ms"], dense_zoom_frame_ms=path["zoom_ms"],
+        dense_zoom_tables_rebuild_s=path["rebuild_s"],
+        dense_max_abs_err=rest["max_abs_err"], dense_zoom_max_abs_err=zoom["max_abs_err"],
+        dense_plain_band_ms=rest["plain_ms"], dense_plain_band_rays=band_rays,
+        dense_bound_ms=lb_stats["bound_ms"], dense_bound_by=lb_stats["bound_by"],
+        dense_slots_per_ray=lb_stats["slots_per_ray"],
+        dense_fallback_share=lb_stats["fallback_share"],
+        dense_full_sweep_ms=sweep_ms, dense_table_build_s=build_s,
+        dense_dolphin_ms=dol_ms, dense_dolphin_max_abs_err=dol_par["max_abs_err"],
+        dense_dolphin_bound_ms=dol_stats["bound_ms"],
+        dense_dolphin_slots_per_ray=dol_stats["slots_per_ray"],
+        dense_dolphin_table_build_s=dol_build_s,
+        dense_chunk_kind_ms=c_ms, dense_chunk_kind_max_abs_err=c_err,
+        dense_few_wedges_ms=few["ms"], dense_few_wedges_full_sweep_ms=few["sweep_ms"],
+        dense_few_wedges_pairs_per_ray=few["pairs_per_ray"],
+    )
 
 
 def main():
@@ -705,6 +1020,7 @@ def main():
           share_of_bound=f"{bound_ms / trace_ms:.4f}")
 
     conv_entry, denoised_trace = denoise_phases(smi)
+    dense_trace = dense_phases()
 
     print(json.dumps({"kernels": [{
         "name": "trace",
@@ -725,7 +1041,7 @@ def main():
         "frame_ms": frame_ms,
         "build_s": build_s,
         "card": smi,
-    } | denoised_trace, conv_entry]}), flush=True)
+    } | denoised_trace | dense_trace, conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

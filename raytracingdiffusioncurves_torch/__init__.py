@@ -6,7 +6,9 @@ The same renderer as the JAX package ``raytracingdiffusioncurves_tpu``
 loading, per-pixel stratified ray fans against cubic Bezier diffusion
 curves, endcaps, portal curves, per-curve weight/weight-degree and
 per-pixel variable Gaussian blur, the temporal denoiser (analytic, or the
-shipped learned networks) and progressive refinement.  The trace and the
+shipped learned networks) and progressive refinement, on scenes from a few
+sub-segments to tens of thousands (per-cell candidate lists, capped and
+distance-ordered for dense scenes, with chunk lists behind them).  The trace and the
 denoiser networks' 3x3 convolutions run in hand-written CUDA kernels
 (``csrc/trace.cu``, ``csrc/conv3x3.cu``, built with nvcc at first use);
 every entry point runs on the card unless the caller passes
@@ -86,4 +88,4 @@ __all__ = [
     "psnr",
 ]
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -16,15 +16,40 @@
 // one TILE_W-wide pixel tile, so every thread of a block shares the tile's
 // per-wedge candidate lists and walks them in lockstep (the list entries are
 // broadcast loads).  A thread loops over the wedges of its fan; a wedge whose
-// list is empty contributes exactly zero and is skipped.  Lists hold global
-// segment ids in ascending order and ties keep the first minimum, so a
-// list walk finds the same winner as the full sweep and the sums are bitwise
-// the same; without lists (any scene size) every segment is walked.  Portal
+// list is empty contributes exactly zero and is skipped.  Portal
 // continuation rays always walk every segment: lists cover primary rays only.
 // The sums stay in registers and are written once per pixel, no atomics, so
 // the output is deterministic.  The intersection constants and the shade
 // table are staged in shared memory when they fit (72 floats per segment,
-// s_pad <= 170), else read through the read-only cache.
+// s_pad <= 170), else read through the read-only cache and L2.
+//
+// Three walks of the primary rays, one kernel instantiation per family:
+//  * id order (trace_kernel<false, false>): lists hold global segment ids in
+//    ascending order and ties keep the first minimum, so a list walk finds
+//    the same winner as the full sweep and the sums are bitwise the same;
+//    without lists (any scene size) every segment is walked.
+//  * distance order (trace_kernel<true, *>), dense scenes: a cell's list holds
+//    its nearest cand_len segments sorted by a conservative lower-bound
+//    distance lb (from any origin of the tile to any point of the
+//    band-widened segment).  Slot k is tested only while lbs[k] is below the
+//    ray's threshold: its strict chain's best key (a guaranteed crossing;
+//    band keys are never larger), clamped by the distance at which the ray
+//    leaves the scene's enclosing circle, with a 1e-5 slack because the
+//    fast sincos directions are unit only to ~5e-7.  The tables' bounds are
+//    bounds of the ordering key (ops/candidates.py, the key guard: a key is
+//    the crossing with the chord's line, which for a ray nearly parallel to
+//    a far chord lies anywhere), so the exit is exact.  When segments were
+//    dropped (count > cand_len) and the threshold is still beyond the
+//    horizon (the first dropped segment's lb) the ray continues into the
+//    cell's sorted chunk list, chunk by chunk of 64 consecutive ids, under
+//    the same rule.  Every segment left out has lb >= the threshold, so it
+//    cannot win.  A walk in distance order meets ids in any order, and a
+//    chunk may hold a segment the list already tested, so the winner is the
+//    explicit (key, id) minimum: smaller key, then smaller id.
+//  * chunk lists only (no segment lists): the chunk walk from an empty
+//    state.
+// The counting instantiation (trace_kernel<true, true>) also adds per-pixel
+// counters of the walk; it is launched outside timed windows only.
 //
 // Dropped TPU workarounds: one-hot MXU gathers, bf16 hi/lo splits,
 // transposed/128-lane layouts, the packed (t, id) sort key and the one-hot
@@ -47,7 +72,9 @@
 // the design does about it: the per-cell lists cut the pairs walked from
 // n_sub to the cell's count (mean ~7 of 128 on the main-path scene), empty
 // cells skip the whole fan, and the walk reads its operands from shared
-// memory.  chip_smoke.py computes the bound from the run's own counts.
+// memory.  Dense scenes do not fit shared memory; their per-ray exit cuts
+// the pairs from the list length to the slots nearer than the ray's hit.
+// chip_smoke.py computes the bound from the run's own counts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +95,10 @@ constexpr int TILE_W = 16;
 constexpr int STAGE_COLS = 8;  // seg_consts columns 0..7 staged
 constexpr int SMEM_LIMIT = 48 * 1024;
 constexpr int BLOCK = 128;  // threads (pixels of one tile) per CUDA block
+constexpr int SEG_CHUNK = 64;  // segments per chunk of the chunk lists
+// Per-pixel counters of the counting instantiation (trace_cuda.STAT_NAMES).
+constexpr int STAT_RAYS = 0, STAT_SLOTS = 1, STAT_FALLBACK = 2, STAT_CHUNKS = 3,
+              STAT_CHUNK_PAIRS = 4, STAT_CLEAN = 5, STAT_GRAZE = 6, N_STATS = 7;
 
 // refine.py constants
 constexpr int BISECT_ITERS = 5;
@@ -81,8 +112,15 @@ struct Params {
   const float* shade;       // (ALLT_ROWS, s_pad)
   const int* cand_ids;      // (T, W, cand_len) or null
   const int* cand_counts;   // (T, W) or null
+  const float* cand_lbs;    // (T, W, cand_len) or null: distance order
+  const float* cand_horizon;  // (T, W) or null
+  const int* chunk_ids;     // (T, W, chunk_slots) or null
+  const float* chunk_lbs;   // (T, W, chunk_slots) or null
+  const int* chunk_counts;  // (T, W) or null
+  const float* circle;      // (4,) scene circle cx, cy, r; key slack (distance order)
+  int* stats;               // (N_STATS, n_px) or null
   float* out;               // (5, n_px)
-  int s_pad, n_sub, cand_len, n_px;
+  int s_pad, n_sub, cand_len, chunk_slots, n_px;
   int width, height, px_start, tiles_x, tile_h, pxb, n_rows;
   int rpp, sw, n_wedges;
   float zoom, off_x, off_y;
@@ -408,6 +446,47 @@ __device__ Shaded shade(const Tables& T, const Params& P, int j, float ox, float
   return h;
 }
 
+// Running (key, id) minima of both chains.
+struct Best {
+  float kb, ks;
+  int wb, ws;
+};
+
+// One (ray, segment) test of closest_hit, for both chains.  A walk in
+// ascending id order keeps the first minimum (TIE false); a walk in
+// distance order takes the explicit tie-break, smaller key, then smaller
+// id (TIE true), so the order in which segments are met, and meeting one
+// twice, cannot change the winner.
+template <bool EXACT, bool TIE>
+__device__ __forceinline__ void consider(const Tables& T, int j, float ox, float oy, float dx,
+                                         float dy, float cross, float band_scale, float min_hit,
+                                         Best& b) {
+  Pair p = pair_at(T, j, ox, oy, dx, dy, cross);
+  float prod_s = p.num_s * (p.denom - p.num_s);
+  float tcut = (p.num_t - min_hit * p.denom) * p.denom;
+  bool sv = (prod_s >= 0.0f) && (tcut > 0.0f);
+  bool bv = false;
+  if (EXACT) {
+    float h = T.c(j, CONST_BAND) * band_scale;
+    float had = h * fabsf(p.denom);
+    bv = (prod_s + had + h * h >= 0.0f) && (tcut + had > 0.0f);
+  }
+  if (sv || bv) {
+    float inv = p.denom == 0.0f ? 0.0f : 1.0f / p.denom;
+    float s = p.num_s * inv;
+    float t_est = (p.num_t - T.c(j, CONST_QUAD) * s * (1.0f - s)) * inv;
+    float key = fmaxf(t_est, F32(1e-30));
+    if (EXACT && bv && (key < b.kb || (TIE && key == b.kb && j < b.wb))) {
+      b.kb = key;
+      b.wb = j;
+    }
+    if (sv && (key < b.ks || (TIE && key == b.ks && j < b.ws))) {
+      b.ks = key;
+      b.ws = j;
+    }
+  }
+}
+
 // closest_hit for both chains over a list (ids) or every segment (ids null):
 // the exact (key, id) minimum, first minimum on ties, ids ascending.
 template <bool EXACT>
@@ -415,46 +494,19 @@ __device__ __forceinline__ void walk(const Tables& T, const int* ids, int n, flo
                                      float dx, float dy, float cross, float band_scale,
                                      float min_hit, int* best_b, int* best_s) {
   const float INF = __int_as_float(0x7f800000);
-  float kb = INF, ks = INF;
-  int wb = -1, ws = -1;
-  for (int k = 0; k < n; ++k) {
-    int j = ids ? __ldg(ids + k) : k;
-    Pair p = pair_at(T, j, ox, oy, dx, dy, cross);
-    float prod_s = p.num_s * (p.denom - p.num_s);
-    float tcut = (p.num_t - min_hit * p.denom) * p.denom;
-    bool sv = (prod_s >= 0.0f) && (tcut > 0.0f);
-    bool bv = false;
-    if (EXACT) {
-      float h = T.c(j, CONST_BAND) * band_scale;
-      float had = h * fabsf(p.denom);
-      bv = (prod_s + had + h * h >= 0.0f) && (tcut + had > 0.0f);
-    }
-    if (sv || bv) {
-      float inv = p.denom == 0.0f ? 0.0f : 1.0f / p.denom;
-      float s = p.num_s * inv;
-      float t_est = (p.num_t - T.c(j, CONST_QUAD) * s * (1.0f - s)) * inv;
-      float key = fmaxf(t_est, F32(1e-30));
-      if (EXACT && bv && key < kb) {
-        kb = key;
-        wb = j;
-      }
-      if (sv && key < ks) {
-        ks = key;
-        ws = j;
-      }
-    }
-  }
-  *best_b = wb;
-  *best_s = ws;
+  Best b = {INF, INF, -1, -1};
+  for (int k = 0; k < n; ++k)
+    consider<EXACT, false>(T, ids ? __ldg(ids + k) : k, ox, oy, dx, dy, cross, band_scale,
+                           min_hit, b);
+  *best_b = b.wb;
+  *best_s = b.ws;
 }
 
-// trace_and_shade: the two winner chains and the per-ray clean rule.
-__device__ Shaded trace_and_shade(const Tables& T, const Params& P, const int* ids, int n,
-                                  float ox, float oy, float dx, float dy, bool need_exit) {
-  float cross = oy * dx - ox * dy;
-  int wb, ws;
+// The per-ray clean rule on the two chains' winners (wb band, ws strict;
+// without exact silhouettes only ws is set).
+__device__ Shaded resolve(const Tables& T, const Params& P, int wb, int ws, float ox, float oy,
+                          float dx, float dy, float cross, bool need_exit) {
   if (!P.exact) {
-    walk<false>(T, ids, n, ox, oy, dx, dy, cross, 0.0f, P.min_hit, &wb, &ws);
     if (ws < 0) {
       Shaded miss;
       miss.hit = false;
@@ -462,8 +514,6 @@ __device__ Shaded trace_and_shade(const Tables& T, const Params& P, const int* i
     }
     return shade(T, P, ws, ox, oy, dx, dy, cross, false, need_exit);
   }
-  float band_scale = sqrtf(dx * dx + dy * dy);
-  walk<true>(T, ids, n, ox, oy, dx, dy, cross, band_scale, P.min_hit, &wb, &ws);
   if (wb < 0) {
     Shaded miss;
     miss.hit = false;
@@ -475,6 +525,88 @@ __device__ Shaded trace_and_shade(const Tables& T, const Params& P, const int* i
   return hb;
 }
 
+// trace_and_shade: the two winner chains over a list or every segment, in
+// id order, and the clean rule.
+__device__ Shaded trace_and_shade(const Tables& T, const Params& P, const int* ids, int n,
+                                  float ox, float oy, float dx, float dy, bool need_exit) {
+  float cross = oy * dx - ox * dy;
+  int wb = -1, ws = -1;
+  if (!P.exact) {
+    walk<false>(T, ids, n, ox, oy, dx, dy, cross, 0.0f, P.min_hit, &wb, &ws);
+  } else {
+    float band_scale = sqrtf(dx * dx + dy * dy);
+    walk<true>(T, ids, n, ox, oy, dx, dy, cross, band_scale, P.min_hit, &wb, &ws);
+  }
+  return resolve(T, P, wb, ws, ox, oy, dx, dy, cross, need_exit);
+}
+
+// ------------------------------------------------- distance-ordered walks
+// Distance beyond which nothing can beat the ray's strict best: the best
+// key or the scene exit, whichever is nearer, with the unit-direction slack.
+__device__ __forceinline__ float walk_threshold(const Best& b, float texit) {
+  return fminf(b.ks, texit) * F32(1.00001);
+}
+
+// Primary ray through a cell's distance-ordered tables: the capped list
+// while its lower bounds stay below the threshold, then, if segments were
+// dropped and the horizon is still below it (or there is no list), the
+// sorted chunk list under the same rule.  ``st``: this thread's counters.
+template <bool EXACT, bool STATS>
+__device__ __forceinline__ void walk_dist(const Tables& T, const Params& P, int cell, float ox,
+                                          float oy, float dx, float dy, float cross,
+                                          float band_scale, int* best_b, int* best_s, int* st) {
+  const float INF = __int_as_float(0x7f800000);
+  Best b = {INF, INF, -1, -1};
+  // Where the ray leaves the scene's enclosing circle: no hit lies beyond
+  // (every band-widened sub-segment is inside, the circle is convex), and
+  // no key lies further beyond than the largest key slack.  A ray that
+  // never enters, or leaves behind its origin, exits at 0.
+  const float pcx = __ldg(P.circle) - ox, pcy = __ldg(P.circle + 1) - oy;
+  const float cr = __ldg(P.circle + 2);
+  const float bq = dx * pcx + dy * pcy;
+  const float disc = bq * bq - (pcx * pcx + pcy * pcy - cr * cr);
+  const float texit =
+      fmaxf(disc >= 0.0f ? bq + sqrtf(fmaxf(disc, 0.0f)) : 0.0f, 0.0f) * F32(1.00002) +
+      __ldg(P.circle + 3);
+
+  bool into_chunks = true;
+  if (P.cand_ids) {
+    const int count = __ldg(P.cand_counts + cell);
+    const int n = min(count, P.cand_len);
+    const int* ids = P.cand_ids + (size_t)cell * P.cand_len;
+    const float* lbs = P.cand_lbs + (size_t)cell * P.cand_len;
+    int k = 0;
+    for (; k < n; ++k) {
+      if (!(__ldg(lbs + k) < walk_threshold(b, texit))) break;
+      consider<EXACT, true>(T, __ldg(ids + k), ox, oy, dx, dy, cross, band_scale, P.min_hit, b);
+    }
+    if (STATS) st[STAT_SLOTS] += k;
+    into_chunks = P.chunk_ids && count > P.cand_len &&
+                  __ldg(P.cand_horizon + cell) < walk_threshold(b, texit);
+  }
+  if (into_chunks) {
+    const int n = __ldg(P.chunk_counts + cell);
+    const int* cids = P.chunk_ids + (size_t)cell * P.chunk_slots;
+    const float* clbs = P.chunk_lbs + (size_t)cell * P.chunk_slots;
+    int c = 0;
+    for (; c < n; ++c) {
+      if (!(__ldg(clbs + c) < walk_threshold(b, texit))) break;
+      const int j0 = __ldg(cids + c) * SEG_CHUNK;
+      const int j1 = min(j0 + SEG_CHUNK, P.n_sub);
+      for (int j = j0; j < j1; ++j)
+        consider<EXACT, true>(T, j, ox, oy, dx, dy, cross, band_scale, P.min_hit, b);
+      if (STATS) st[STAT_CHUNK_PAIRS] += max(j1 - j0, 0);
+    }
+    if (STATS) {
+      st[STAT_CHUNKS] += c;
+      st[STAT_FALLBACK] += c > 0;
+    }
+  }
+  *best_b = b.wb;
+  *best_s = b.ws;
+}
+
+template <bool DIST, bool STATS>
 __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
   extern __shared__ float smem[];
   Tables T;
@@ -509,11 +641,15 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
   const bool need_exit = P.n_traces > 1;
 
   float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f, acc4 = 0.0f;
+  int st[N_STATS] = {0, 0, 0, 0, 0, 0, 0};
   for (int w = 0; w < P.n_wedges; ++w) {
     const int* ids = nullptr;
     int n0 = P.n_sub;
-    if (P.cand_ids) {
-      const int cell = tile * P.n_wedges + w;
+    const int cell = tile * P.n_wedges + w;
+    if (DIST) {
+      // empty cell: no segment (or chunk) passes, every primary ray misses
+      if (__ldg((P.cand_ids ? P.cand_counts : P.chunk_counts) + cell) == 0) continue;
+    } else if (P.cand_ids) {
       n0 = min(__ldg(P.cand_counts + cell), P.cand_len);
       if (n0 == 0) continue;  // empty cell: every primary ray misses
       ids = P.cand_ids + (size_t)cell * P.cand_len;
@@ -538,9 +674,28 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
       // --- trace with portal continuation (intersect.trace_full) ---
       float fr = 1.0f, fg = 1.0f, fb = 1.0f, inv_w = 0.0f, blur_prod = 1.0f;
       for (int bounce = 0; bounce < P.n_traces; ++bounce) {
-        const int* L = bounce == 0 ? ids : nullptr;
-        const int n = bounce == 0 ? n0 : P.n_sub;
-        Shaded h = trace_and_shade(T, P, L, n, ox, oy, dx, dy, need_exit);
+        Shaded h;
+        if (DIST && bounce == 0) {
+          const float cross = oy * dx - ox * dy;
+          int wb = -1, ws = -1;
+          if (P.exact) {
+            walk_dist<true, STATS>(T, P, cell, ox, oy, dx, dy, cross,
+                                   sqrtf(dx * dx + dy * dy), &wb, &ws, st);
+          } else {
+            walk_dist<false, STATS>(T, P, cell, ox, oy, dx, dy, cross, 0.0f, &wb, &ws, st);
+          }
+          if (STATS) {
+            st[STAT_RAYS] += 1;
+            const bool graze = P.exact && wb >= 0 && wb != ws;
+            st[STAT_GRAZE] += graze;
+            st[STAT_CLEAN] += !graze && ws >= 0;
+          }
+          h = resolve(T, P, wb, ws, ox, oy, dx, dy, cross, need_exit);
+        } else {
+          const int* L = bounce == 0 ? ids : nullptr;
+          const int n = bounce == 0 ? n0 : P.n_sub;
+          h = trace_and_shade(T, P, L, n, ox, oy, dx, dy, need_exit);
+        }
         if (!h.hit) break;
         float w_self = h.wm * powf(h.t, -h.wd);
         if (!h.portal) {
@@ -570,23 +725,50 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
   P.out[2 * P.n_px + p] = acc2;
   P.out[3 * P.n_px + p] = acc3;
   P.out[4 * P.n_px + p] = acc4;
+  if (STATS) {
+#pragma unroll
+    for (int i = 0; i < N_STATS; ++i) P.stats[i * P.n_px + p] += st[i];
+  }
 }
 
 }  // namespace
 
+// Tables (trace_cuda.CandTables): id-ordered lists are cand_ids + cand_counts
+// alone; distance-ordered tables add cand_lbs + cand_horizon and/or the chunk
+// lists, with the scene circle.  ``stats`` (distance order only) selects the
+// counting instantiation.
 extern "C" int rtdc_trace_sums(const float* seg_consts, const float* shade_all_t, int s_pad,
                                int n_sub, const int* cand_ids, const int* cand_counts,
-                               int cand_len, float* out, int n_px, int width, int height,
+                               int cand_len, const float* cand_lbs, const float* cand_horizon,
+                               const int* chunk_ids, const float* chunk_lbs,
+                               const int* chunk_counts, int chunk_slots, const float* circle,
+                               int* stats, float* out, int n_px, int width, int height,
                                int px_start, int tiles_x, int tiles_y, int tile_h, int pxb,
                                int rpp, int sw, int n_wedges, float zoom, float off_x,
                                float off_y, uint32_t frame, uint32_t seed, int use_aa, int save,
                                int exact, int n_traces, float min_hit, void* stream) {
   if (width <= 0 || rpp <= 0 || sw <= 0 || pxb <= 0) return (int)cudaErrorInvalidValue;
+  const bool dist = cand_lbs != nullptr || chunk_ids != nullptr;
+  if (dist) {
+    if (!circle) return (int)cudaErrorInvalidValue;
+    if (cand_ids && !(cand_counts && cand_lbs && cand_horizon)) return (int)cudaErrorInvalidValue;
+    if (chunk_ids && !(chunk_lbs && chunk_counts)) return (int)cudaErrorInvalidValue;
+  } else if (stats || (cand_ids && !cand_counts)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Params P;
   P.seg_consts = seg_consts;
   P.shade = shade_all_t;
   P.cand_ids = cand_ids;
   P.cand_counts = cand_counts;
+  P.cand_lbs = cand_lbs;
+  P.cand_horizon = cand_horizon;
+  P.chunk_ids = chunk_ids;
+  P.chunk_lbs = chunk_lbs;
+  P.chunk_counts = chunk_counts;
+  P.chunk_slots = chunk_slots;
+  P.circle = circle;
+  P.stats = stats;
   P.out = out;
   P.s_pad = s_pad;
   P.n_sub = n_sub;
@@ -618,7 +800,13 @@ extern "C" int rtdc_trace_sums(const float* seg_consts, const float* shade_all_t
   P.staged = smem <= SMEM_LIMIT;
   if (!P.staged) smem = 0;
   dim3 grid(tiles_x * tiles_y, (pxb + BLOCK - 1) / BLOCK);
-  trace_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(P);
+  if (!dist) {
+    trace_kernel<false, false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(P);
+  } else if (!stats) {
+    trace_kernel<true, false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(P);
+  } else {
+    trace_kernel<true, true><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(P);
+  }
   return (int)cudaGetLastError();
 }
 

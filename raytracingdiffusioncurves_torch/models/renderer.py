@@ -76,8 +76,11 @@ def trace_image(
     (DeviceCode.cu:153-181).  Pixels whose rays all return zero weight are
     NaN in the reference (0/0); here they get config.background (alpha is
     always 1 — the reference never writes it).  ``cand_tables``: hoisted
-    tables of this camera (trace_cuda.build_cand_tables); None builds them
-    in-frame for scenes that use lists."""
+    tables of this camera (trace_cuda.build_cand_tables: slot-mode lists,
+    capped distance-ordered lists with chunk lists, or chunk lists alone, by
+    the scene's size); None builds them in-frame for scenes that use any.
+    ``gather_len``: seg_max_count's value (None for all but slot-mode
+    lists)."""
     h, w = scene.height, scene.width
     if cand_tables is None:
         cand_tables = trace_cuda.build_cand_tables(scene, camera, config)
@@ -187,7 +190,7 @@ def render_frame(
     caller (``net_for_params(load_params(path))``), selects the learned
     denoiser; None the analytic temporal pass.  ``cand_tables``/``gather_len``: hoisted
     acceleration tables of this camera (trace_cuda.build_cand_tables and
-    seg_max_count); None builds them in-frame."""
+    seg_max_count, for scenes of any density); None builds them in-frame."""
     image, blur_map = trace_image(
         scene, camera, config, state.frame, cand_tables, gather_len
     )

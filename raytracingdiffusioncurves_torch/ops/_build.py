@@ -50,6 +50,9 @@ SIGNATURES = {
         "rtdc_trace_sums": (
             [_P, _P, _I, _I,  # seg_consts, shade_all_t, s_pad, n_sub
              _P, _P, _I,  # cand ids, cand counts, cand_len
+             _P, _P,  # cand lbs, cand horizon
+             _P, _P, _P, _I,  # chunk ids, chunk lbs, chunk counts, chunk_slots
+             _P, _P,  # scene circle, stats
              _P, _I,  # out, n_px
              _I, _I, _I, _I, _I, _I, _I,  # width, height, px_start, tiles_x, tiles_y, tile_h, pxb
              _I, _I, _I,  # rpp, sw, n_wedges

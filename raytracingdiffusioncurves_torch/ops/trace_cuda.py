@@ -38,11 +38,21 @@ TILE_W = 16
 # Scenes beyond this many padded sub-segments take 2-sample wedges and
 # 1024-ray blocks (the JAX package's dense-scene geometry).
 DENSE_SPAD = 4096
-# Candidate tables larger than this take the full sweep instead.
+# Slots of one level of a capped candidate list; scenes within one level
+# keep every candidate (slot mode).
+LEVEL_SLOTS = 128
+# Segment-list tables larger than this are not built: the scene takes chunk
+# lists (or, within one chunk, the full sweep) instead.
 _CAND_TABLE_BYTES_CAP = 2 << 30
-# Rays per chunk of the plain version (CPU, CUDA): bounds its (rays x
-# segments) intermediates to tens of MB on the CPU, a few GB on the card.
-_PLAIN_CHUNK_RAYS = (1 << 14, 1 << 18)
+# (rays x segments) pairs per chunk of the plain version (CPU, CUDA): bounds
+# its intermediates to tens of MB on the CPU, a few GB on the card.
+_PLAIN_CHUNK_PAIRS = (1 << 21, 1 << 25)
+# Per-pixel counters of the statistics launch, in the order the kernel
+# writes them.
+STAT_NAMES = (
+    "live_rays", "list_slots", "fallback_rays", "chunks", "chunk_pairs",
+    "clean_hits", "grazes",
+)
 
 # Launches of the CUDA trace kernel since the last reset (one per
 # trace_sums_flat call on a CUDA tensor).  chip_smoke.py reads it to show
@@ -56,13 +66,56 @@ def reset_launch_count() -> None:
 
 
 class CandTables(NamedTuple):
-    """Camera-dependent acceleration tables of one (camera, pixel band):
-    ids (T, W, L) int32 global segment ids in ascending order, padded with
-    s_pad; counts (T, W) int32.  The kernel reads the first min(count, L)
-    ids of each list unchecked: build the tables with build_cand_tables."""
+    """Camera-dependent acceleration tables of one (camera, pixel band), per
+    (tile, wedge) cell.  Three shapes, by the scene's kind (accel_kind):
 
-    ids: torch.Tensor
-    counts: torch.Tensor
+    * slot-mode segment lists (s_pad <= LEVEL_SLOTS): ``ids`` (T, W, L)
+      int32 global segment ids in ascending order, padded with s_pad, and
+      ``counts`` (T, W) int32; every other field None.
+    * capped segment lists (larger scenes): ``ids`` sorted by ``lbs``
+      (T, W, L) float32, the conservative lower-bound distance of each slot
+      (1e30 past the count); ``counts`` capped at cand_len + 1 (more than
+      cand_len: segments were dropped); ``horizon`` (T, W) float32, the
+      bound of the first dropped segment; where a list can overflow, the
+      chunk lists ``chunk_ids`` / ``chunk_lbs`` (T, W, C) and
+      ``chunk_counts`` (T, W) of the chunks that hold dropped segments.
+    * chunk lists only: ``ids``, ``counts``, ``lbs``, ``horizon`` None.
+
+    ``circle`` (4,) float32, on the device, for the distance-ordered walks:
+    the scene's enclosing circle (cx, cy, r) and the largest key slack of
+    the key guard (0 without it).  The kernel reads the first min(count, L)
+    entries of each list unchecked: build the tables with
+    build_cand_tables."""
+
+    ids: torch.Tensor | None
+    counts: torch.Tensor | None
+    lbs: torch.Tensor | None = None
+    horizon: torch.Tensor | None = None
+    chunk_ids: torch.Tensor | None = None
+    chunk_lbs: torch.Tensor | None = None
+    chunk_counts: torch.Tensor | None = None
+    circle: torch.Tensor | None = None
+
+    @property
+    def dist_ordered(self) -> bool:
+        """Walked in distance order with a per-ray exit (capped segment
+        lists, chunk lists) rather than in id order to the end."""
+        return self.lbs is not None or self.chunk_ids is not None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self if t is not None)
+
+
+def _cand_len_for(s_pad: int) -> int:
+    """Slots of a scene's segment lists, as the JAX package chooses them:
+    every segment within one level (slot mode), else 2 levels up to 4096
+    padded sub-segments and 4 beyond, never more levels than the scene
+    fills."""
+    if s_pad <= LEVEL_SLOTS:
+        return s_pad
+    levels = 2 if s_pad <= 4096 else 4
+    return LEVEL_SLOTS * min(levels, -(-s_pad // LEVEL_SLOTS))
 
 
 def _choose_block(
@@ -109,17 +162,63 @@ def _n_traces(scene: dev.DeviceScene, config: RenderConfig) -> int:
     return (config.max_trace_depth + 1) if scene.has_portals else 1
 
 
+def _n_chunks(s_pad: int) -> int:
+    return s_pad // SEG_CHUNK if s_pad >= SEG_CHUNK else 1
+
+
+def _seg_table_bytes(s_pad: int, n_tiles: int, n_wedges: int) -> int:
+    """Bytes of a scene's segment-list tables, chunk lists included."""
+    cand_len = min(_cand_len_for(s_pad), s_pad)
+    per_cell = cand_len * 4 + 4  # ids, count
+    if s_pad > LEVEL_SLOTS:
+        per_cell += cand_len * 4 + 4  # lbs, horizon
+        if cand_len < s_pad:
+            per_cell += _n_chunks(s_pad) * 8 + 4  # chunk ids, lbs, count
+    return n_tiles * n_wedges * per_cell
+
+
 def accel_kind(scene: dev.DeviceScene, config: RenderConfig, n_px: int | None = None):
-    """"seg" when the scene gets per-(tile, wedge) segment lists, else None
-    (the kernel's full sweep)."""
+    """Which acceleration tables the scene gets, as the JAX package decides
+    (without its wedge coarsening): "seg" (per-(tile, wedge) segment lists,
+    plus chunk lists where a list can overflow), "chunk" (chunk lists only:
+    more than CAND_MAX_SPAD sub-segments, more than CAND_MAX_WEDGES wedges,
+    or segment tables past the byte cap) or None (the kernel's full
+    sweep)."""
     w = scene.width
     n_px = scene.height * w if n_px is None else n_px
     _, _, _, n_wedges, _, _, _, n_tiles = _grid_geom(scene, config, w, n_px)
-    if not cand_mod.use_candidates(scene.s_pad, n_wedges):
-        return None
-    if n_tiles * n_wedges * scene.s_pad * 4 > _CAND_TABLE_BYTES_CAP:
-        return None
-    return "seg"
+    if (
+        cand_mod.use_candidates(scene.s_pad, n_wedges)
+        and _seg_table_bytes(scene.s_pad, n_tiles, n_wedges) <= _CAND_TABLE_BYTES_CAP
+    ):
+        return "seg"
+    if _n_chunks(scene.s_pad) > 1:
+        return "chunk"
+    return None
+
+
+def scene_circle(scene: dev.DeviceScene, key_guard: bool = True) -> torch.Tensor:
+    """(cx, cy, r, slack) float32 on the scene's device: a circle that
+    encloses every valid chunk circle (bands included), hence every point a
+    ray can hit, and the largest key slack of the key guard (candidates.py;
+    0 for tables built without it).  A ray stops looking past the distance at which it leaves
+    the circle, plus the slack: an ordering key can overshoot its hit."""
+    cbx, cby, cbr = scene.chunk_bounds[:, 0], scene.chunk_bounds[:, 1], scene.chunk_bounds[:, 2]
+    cvalid = cbx < 1e29
+    big = 1e30
+    xmin = torch.min(torch.where(cvalid, cbx - cbr, big))
+    xmax = torch.max(torch.where(cvalid, cbx + cbr, -big))
+    ymin = torch.min(torch.where(cvalid, cby - cbr, big))
+    ymax = torch.max(torch.where(cvalid, cby + cbr, -big))
+    scx = 0.5 * (xmin + xmax)
+    scy = 0.5 * (ymin + ymax)
+    scr = torch.max(
+        torch.where(cvalid, torch.sqrt((cbx - scx) ** 2 + (cby - scy) ** 2) + cbr, 0.0)
+    )
+    slack = torch.zeros_like(scr)
+    if key_guard:
+        slack = cand_mod.key_slack(scene.seg_consts, cand_mod.KEY_GUARD_SIN).max()
+    return torch.stack([scx, scy, scr, slack])
 
 
 def build_cand_tables(
@@ -128,42 +227,88 @@ def build_cand_tables(
     config: RenderConfig,
     px_start: int = 0,
     n_px: int | None = None,
+    key_guard: bool = True,
 ) -> CandTables | None:
     """Build the camera-dependent acceleration tables for trace_sums_flat's
     ``cand_tables`` argument (the analogue of the reference's accel build,
     optixHello.cpp:764-830): they depend only on (scene, camera, config,
     pixel band), so a static camera builds them once.  Returns None for
     scenes that take the full sweep.  Tables built for a different camera
-    or band mis-cull silently: callers own the invalidation."""
+    or band mis-cull silently: callers own the invalidation.
+
+    ``key_guard``: distance-ordered tables get the key guard of
+    candidates.py: their lower bounds then bound each segment's ordering
+    key, which makes the kernel's early exits exact.  False builds the JAX
+    package's tables (distance bounds), under which a far chord that a ray
+    grazes nearly parallel can be missed although the full sweep picks it;
+    only the tests that hold the tables against the JAX package and pin
+    that fault ask for them."""
     w, h = scene.width, scene.height
     n_px = h * w if n_px is None else n_px
-    if accel_kind(scene, config, n_px) != "seg":
+    kind = accel_kind(scene, config, n_px)
+    if kind is None:
         return None
     _, _, sw, _, tile_h, tiles_x, tiles_y, _ = _grid_geom(scene, config, w, n_px)
-    ids, counts = cand_mod.segment_ids(
-        scene.seg_consts, w, h, camera.zoom_factor, camera.offset_x,
-        camera.offset_y, config.rays_per_pixel, sw, tiles_x, tiles_y,
-        TILE_W, tile_h, px_start, config.diffusion_curve_save,
-        cand_len=scene.s_pad,
+    grid = (
+        w, h, camera.zoom_factor, camera.offset_x, camera.offset_y,
+        config.rays_per_pixel, sw, tiles_x, tiles_y, TILE_W, tile_h, px_start,
+        config.diffusion_curve_save,
     )
-    return CandTables(ids, counts)
+    seg = (None, None, None, None)
+    keep = None
+    guard_sin = cand_mod.KEY_GUARD_SIN if key_guard else None
+    if kind == "seg":
+        cand_len = _cand_len_for(scene.s_pad)
+        if scene.s_pad <= LEVEL_SLOTS:
+            ids, counts, _, _, _ = cand_mod.segment_ids(
+                scene.seg_consts, *grid, cand_len=cand_len, order="id"
+            )
+            return CandTables(ids, counts)
+        overflows = cand_len < scene.s_pad
+        ids, counts, lbs, horizon, cmax = cand_mod.segment_ids(
+            scene.seg_consts, *grid, cand_len=cand_len, order="dist",
+            chunk_cover=overflows, key_guard=guard_sin,
+        )
+        seg = (ids, counts, lbs, horizon)
+        if not overflows:
+            return CandTables(*seg, circle=scene_circle(scene, key_guard))
+        # a chunk stays in the walk iff one of its passing segments was
+        # dropped from the list (lb >= horizon; ties keep)
+        keep = cmax >= horizon[..., None]
+    slack = hazard = None
+    if key_guard:
+        slack, hazard = cand_mod.chunk_guard(
+            scene.seg_consts, config.rays_per_pixel, sw, guard_sin
+        )
+    chunk_ids, chunk_lbs, chunk_counts = cand_mod.chunk_candidates(
+        scene.chunk_bounds, *grid, keep=keep, slack=slack, hazard=hazard
+    )
+    if key_guard and kind == "seg":
+        # horizon 0: a hazard may have been dropped, and its key has no bound
+        live = chunk_lbs < cand_mod.FAR_LB
+        chunk_lbs = torch.where((horizon[..., None] <= 0.0) & live, 0.0, chunk_lbs)
+    return CandTables(
+        *seg, chunk_ids, chunk_lbs, chunk_counts, scene_circle(scene, key_guard)
+    )
 
 
 def seg_max_count(scene: dev.DeviceScene, cand_tables: CandTables | None) -> int | None:
-    """Largest per-(tile, wedge) candidate count of the tables (one host
-    sync), or None without tables.  Passed to trace_sums_flat as
-    ``gather_len`` it lets the kernel read lists narrowed to that length."""
-    del scene
-    if cand_tables is None:
+    """Largest per-(tile, wedge) candidate count of slot-mode tables (one
+    host sync), or None when the tables are not slot-mode segment lists
+    (none, capped lists, chunk lists): those are walked as built.  Passed to
+    trace_sums_flat as ``gather_len`` it lets the kernel read lists narrowed
+    to that length."""
+    if cand_tables is None or scene.s_pad > LEVEL_SLOTS or cand_tables.dist_ordered:
         return None
     return int(cand_tables.counts.max())
 
 
 def narrow_cand_tables(cand_tables: CandTables, gather_len: int) -> CandTables:
-    """Tables with each list cut to ``gather_len`` slots (call with
-    seg_max_count's value; an under-certified length drops candidates)."""
+    """Slot-mode tables with each list cut to ``gather_len`` slots (call
+    with seg_max_count's value; an under-certified length drops candidates).
+    Distance-ordered tables pass through unchanged."""
     gl = max(int(gather_len), 1)
-    if cand_tables.ids.shape[-1] <= gl:
+    if cand_tables.dist_ordered or cand_tables.ids.shape[-1] <= gl:
         return cand_tables
     return CandTables(cand_tables.ids[..., :gl].contiguous(), cand_tables.counts)
 
@@ -185,8 +330,8 @@ def trace_sums_flat(
     ``cand_tables``: build_cand_tables output for THIS (camera, px_start,
     n_px), walked by primary rays; None walks every segment for every ray
     (the full sweep — the same sums, bit for bit).  ``gather_len``:
-    certified max per-cell count (seg_max_count); lists are read up to that
-    length."""
+    certified max per-cell count of slot-mode tables (seg_max_count); lists
+    are read up to that length."""
     w = scene.width
     if px_start % w != 0:
         raise ValueError(f"px_start {px_start} must start a row of width {w}")
@@ -199,28 +344,70 @@ def trace_sums_flat(
     return trace_sums_plain(scene, camera, config, frame, px_start, n_px, cand_tables)
 
 
+def trace_walk_stats(
+    scene: dev.DeviceScene,
+    camera: Camera,
+    config: RenderConfig,
+    frame: int,
+    px_start: int,
+    n_px: int,
+    cand_tables: CandTables,
+) -> dict[str, int]:
+    """One launch of the kernel's counting instantiation over
+    distance-ordered tables: totals over the band's primary rays of
+    STAT_NAMES — rays of non-empty cells, list slots tested, rays that
+    walked at least one chunk of the chunk lists (the horizon fallback, or
+    the whole walk where there are chunk lists only), chunks walked, (ray,
+    segment) pairs tested there, rays whose two chains agreed on the
+    winner, rays shaded through root isolation.  For measurement outside
+    any timed window (one host sync); CUDA only."""
+    if scene.device.type != "cuda":
+        raise RuntimeError("the statistics launch runs only on a CUDA device")
+    if cand_tables is None or not cand_tables.dist_ordered:
+        raise ValueError("walk statistics need distance-ordered tables")
+    stats = torch.zeros((len(STAT_NAMES), n_px), dtype=torch.int32, device=scene.device)
+    _trace_sums_cuda(scene, camera, config, frame, px_start, n_px, cand_tables, stats)
+    totals = stats.sum(dim=1, dtype=torch.int64).tolist()
+    return dict(zip(STAT_NAMES, totals))
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
 
 
 def _allowed_mask(scene, cand_tables: CandTables, pixel_rel, sample_ids, tile_h, tiles_x, sw):
-    """(N, S) bool: segment j is in ray n's (tile, wedge) list."""
+    """(N, S) bool: segment j is one that ray n's (tile, wedge) tables
+    declare hittable — a slot of the cell's segment list or a member of one
+    of the cell's listed chunks."""
     w = scene.width
+    s_pad = scene.s_pad
     row_rel = pixel_rel // w
     col = pixel_rel % w
     tile = (row_rel // tile_h) * tiles_x + col // TILE_W
     wedge = sample_ids // sw
-    ids = cand_tables.ids[tile, wedge].to(torch.int64)  # (N, L)
-    n_slots = ids.shape[-1]
-    cnt = torch.clamp(cand_tables.counts[tile, wedge].to(torch.int64), max=n_slots)
-    slot = torch.arange(n_slots, device=ids.device)
-    ids = torch.where(slot[None, :] < cnt[:, None], ids, scene.s_pad)
-    allowed = torch.zeros(
-        (ids.shape[0], scene.s_pad + 1), dtype=torch.bool, device=ids.device
-    )
-    allowed.scatter_(1, ids, True)
-    return allowed[:, : scene.s_pad]
+    n = tile.shape[0]
+    device = tile.device
+    allowed = torch.zeros((n, s_pad), dtype=torch.bool, device=device)
+    if cand_tables.ids is not None:
+        ids = cand_tables.ids[tile, wedge].to(torch.int64)  # (N, L)
+        n_slots = ids.shape[-1]
+        cnt = torch.clamp(cand_tables.counts[tile, wedge].to(torch.int64), max=n_slots)
+        slot = torch.arange(n_slots, device=device)
+        ids = torch.where(slot[None, :] < cnt[:, None], ids, s_pad)
+        listed = torch.zeros((n, s_pad + 1), dtype=torch.bool, device=device)
+        listed.scatter_(1, ids, True)
+        allowed |= listed[:, :s_pad]
+    if cand_tables.chunk_ids is not None:
+        cids = cand_tables.chunk_ids[tile, wedge].to(torch.int64)  # (N, C)
+        n_chunks = cids.shape[-1]
+        ccnt = cand_tables.chunk_counts[tile, wedge].to(torch.int64)
+        slot = torch.arange(n_chunks, device=device)
+        cids = torch.where(slot[None, :] < ccnt[:, None], cids, n_chunks)
+        chunks = torch.zeros((n, n_chunks + 1), dtype=torch.bool, device=device)
+        chunks.scatter_(1, cids, True)
+        allowed |= chunks[:, :n_chunks].repeat_interleave(SEG_CHUNK, dim=1)[:, :s_pad]
+    return allowed
 
 
 def trace_sums_plain(
@@ -234,12 +421,16 @@ def trace_sums_plain(
 ):
     """The plain PyTorch version of the trace kernel, on any device:
     broadcast (rays x segments) tensors, chunked over whole pixels so the
-    intermediates stay bounded.  With ``cand_tables`` the primary rays only
-    consider their cell's list (the kernel's list mode)."""
+    intermediates stay bounded.  With ``cand_tables`` the primary rays
+    consider exactly the segments their cell's tables declare hittable (the
+    segment list and the members of the listed chunks) and take the exact
+    (key, id) minimum over them, with none of the kernel's early exits: the
+    kernel's arithmetic without its shortcuts.  Conservative tables give
+    the sums of the full sweep bit for bit."""
     w = scene.width
     rpp = config.rays_per_pixel
     device = scene.device
-    rays_per_chunk = _PLAIN_CHUNK_RAYS[device.type == "cuda"]
+    rays_per_chunk = _PLAIN_CHUNK_PAIRS[device.type == "cuda"] // max(scene.s_pad, LEVEL_SLOTS)
     px_chunk = max(1, min(n_px, rays_per_chunk // rpp))
     _, _, sw, _, tile_h, tiles_x, _, _ = _grid_geom(scene, config, w, n_px)
     csum = torch.empty((n_px, 3), dtype=torch.float32, device=device)
@@ -283,8 +474,61 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _trace_sums_cuda(scene, camera, config, frame, px_start, n_px, cand_tables):
-    """Launch csrc/trace.cu on the scene's card; one launch per call."""
+def _table_pointers(tables: CandTables | None, n_tiles: int, n_wedges: int):
+    """Checked device pointers of the tables in the kernel's argument
+    order: (ids, counts, cand_len, lbs, horizon, chunk_ids, chunk_lbs,
+    chunk_counts, chunk_slots, circle); None and 0 for what a kind lacks."""
+    if tables is None:
+        return (None, None, 0, None, None, None, None, None, 0, None)
+    cells = (n_tiles, n_wedges)
+    ids_ptr = cnt_ptr = lbs_ptr = hor_ptr = None
+    cand_len = 0
+    if tables.ids is not None:
+        _check(tables.ids, "cand ids", torch.int32)
+        if tuple(tables.ids.shape[:2]) != cells:
+            raise ValueError(
+                f"cand ids shape {tuple(tables.ids.shape)} does not match the "
+                f"{cells} tile/wedge grid"
+            )
+        cand_len = tables.ids.shape[-1]
+        _check(tables.counts, "cand counts", torch.int32, cells)
+        ids_ptr, cnt_ptr = tables.ids.data_ptr(), tables.counts.data_ptr()
+        if tables.lbs is not None:
+            _check(tables.lbs, "cand lbs", torch.float32, tables.ids.shape)
+            _check(tables.horizon, "cand horizon", torch.float32, cells)
+            lbs_ptr, hor_ptr = tables.lbs.data_ptr(), tables.horizon.data_ptr()
+    cid_ptr = clb_ptr = ccnt_ptr = None
+    chunk_slots = 0
+    if tables.chunk_ids is not None:
+        _check(tables.chunk_ids, "chunk ids", torch.int32)
+        if tuple(tables.chunk_ids.shape[:2]) != cells:
+            raise ValueError(
+                f"chunk ids shape {tuple(tables.chunk_ids.shape)} does not match the "
+                f"{cells} tile/wedge grid"
+            )
+        chunk_slots = tables.chunk_ids.shape[-1]
+        _check(tables.chunk_lbs, "chunk lbs", torch.float32, tables.chunk_ids.shape)
+        _check(tables.chunk_counts, "chunk counts", torch.int32, cells)
+        cid_ptr, clb_ptr, ccnt_ptr = (
+            tables.chunk_ids.data_ptr(), tables.chunk_lbs.data_ptr(),
+            tables.chunk_counts.data_ptr(),
+        )
+    circle_ptr = None
+    if tables.dist_ordered:
+        if tables.circle is None:
+            raise ValueError("distance-ordered tables need the scene circle")
+        _check(tables.circle, "scene circle", torch.float32, (4,))
+        circle_ptr = tables.circle.data_ptr()
+    if ids_ptr is None and cid_ptr is None:
+        raise ValueError("candidate tables hold neither segment nor chunk lists")
+    return (ids_ptr, cnt_ptr, cand_len, lbs_ptr, hor_ptr, cid_ptr, clb_ptr, ccnt_ptr,
+            chunk_slots, circle_ptr)
+
+
+def _trace_sums_cuda(scene, camera, config, frame, px_start, n_px, cand_tables, stats=None):
+    """Launch csrc/trace.cu on the scene's card; one launch per call.
+    ``stats``: (len(STAT_NAMES), n_px) int32 zeros selects the counting
+    instantiation, which adds its per-pixel counters there."""
     global LAUNCHES
     from . import _build  # builds csrc/trace.cu on first use
 
@@ -295,25 +539,18 @@ def _trace_sums_cuda(scene, camera, config, frame, px_start, n_px, cand_tables):
     s_pad = scene.s_pad
     _check(scene.seg_consts, "seg_consts", torch.float32, (s_pad, dev.CONST_COLS))
     _check(scene.shade_all_t, "shade_all_t", torch.float32, (dev.ALLT_ROWS, s_pad))
-    if cand_tables is not None:
-        ids, counts = cand_tables
-        _check(ids, "cand ids", torch.int32)
-        _check(counts, "cand counts", torch.int32, (n_tiles, n_wedges))
-        if ids.shape[:2] != (n_tiles, n_wedges):
-            raise ValueError(
-                f"cand ids shape {tuple(ids.shape)} does not match the "
-                f"({n_tiles}, {n_wedges}) tile/wedge grid"
-            )
-        ids_ptr, cnt_ptr, cand_len = ids.data_ptr(), counts.data_ptr(), ids.shape[-1]
-    else:
-        ids_ptr, cnt_ptr, cand_len = None, None, 0
+    table_args = _table_pointers(cand_tables, n_tiles, n_wedges)
+    stats_ptr = None
+    if stats is not None:
+        _check(stats, "stats", torch.int32, (len(STAT_NAMES), n_px))
+        stats_ptr = stats.data_ptr()
     out = torch.empty((5, n_px), dtype=torch.float32, device=scene.device)
     lib = _build.load("trace")
     stream = torch.cuda.current_stream(scene.device).cuda_stream
     err = lib.rtdc_trace_sums(
         scene.seg_consts.data_ptr(), scene.shade_all_t.data_ptr(),
         s_pad, scene.n_sub,
-        ids_ptr, cnt_ptr, cand_len,
+        *table_args, stats_ptr,
         out.data_ptr(), n_px,
         w, h, px_start, tiles_x, tiles_y, tile_h, pxb,
         config.rays_per_pixel, sw, n_wedges,

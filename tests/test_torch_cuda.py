@@ -12,6 +12,13 @@ the order of the per-pixel sums; kernel with lists == kernel full sweep
 bit for bit, with the lists at full length and narrowed to the largest
 count (``gather_len``, as the main path passes them).
 
+Dense scenes (capped, distance-ordered lists with a per-ray exit, the
+horizon fallback into the sorted chunk lists, chunk lists alone): the same
+two bars, kernel vs full sweep bit for bit and kernel vs plain version
+under assert_parity, on the inline stroke and strand scenes and on the
+generated lady_bug- and dolphin-class scenes, with the fallback seen to
+fire in the kernel's own counters.
+
 Convolution: kernel and plain version multiply the same bf16 values and
 differ only in the order of the float32 sum: at least 99% of values bitwise
 equal, none off by more than one bf16 step of the accumulator plus one of
@@ -32,11 +39,17 @@ from raytracingdiffusioncurves_torch.models import renderer
 from raytracingdiffusioncurves_torch.ops import conv_cuda as cc
 from raytracingdiffusioncurves_torch.ops import trace_cuda as tc
 from raytracingdiffusioncurves_torch.utils.scenes import (
+    _curve_xml,
+    _document,
+    dense_scene_xml,
     portal_weights_scene_xml,
     seeded_scene_xml,
 )
 
 pytestmark = pytest.mark.cuda
+
+WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "weights", "denoiser_r3d.msgpack")
 
 
 @pytest.fixture
@@ -125,12 +138,230 @@ def test_wrapper_rejects_bad_tables(cuda):
 
 
 # ---------------------------------------------------------------------------
+# dense scenes: distance-ordered lists, horizon fallback, chunk lists
+# ---------------------------------------------------------------------------
+
+
+def _strokes_xml(size):
+    """90 random strokes of one cubic each, junctions everywhere."""
+    g = torch.Generator().manual_seed(7)
+
+    def rand(lo, hi, n=1):
+        return (lo + (hi - lo) * torch.rand(n, generator=g)).tolist()
+
+    curves = []
+    for _ in range(90):
+        x, y = rand(0.08 * size, 0.9 * size, 2)
+        pts = [(x, y)]
+        for _ in range(3):
+            dx, dy = rand(-0.125 * size, 0.125 * size, 2)
+            x, y = x + dx, y + dy
+            pts.append((x, y))
+        cols = [tuple(int(c) for c in rand(0, 255, 3)) for _ in range(4)]
+        curves.append(_curve_xml(pts, (cols[0], cols[1]), (cols[2], cols[3]),
+                                 tuple(rand(0.5, 2.0, 2))))
+    return _document(size, size, curves)
+
+
+def _strands_xml(size):
+    """40 parallel strands of one cubic each, none crossing."""
+    curves = []
+    for i in range(40):
+        x = (4 + 1.4 * i) / 64.0 * size
+        pts = [(x, f * size) for f in (0.03, 0.34, 0.66, 0.97)]
+        curves.append(_curve_xml(
+            pts, (((i * 37) % 256, (i * 91) % 256, 200),) * 2,
+            ((200, (i * 53) % 256, (i * 17) % 256),) * 2, (0.5, 1.5)))
+    return _document(size, size, curves)
+
+
+def _dense_case(cuda, name, w, h):
+    if name == "strokes":
+        xml, k = _strokes_xml(w), 8
+    elif name == "strands":
+        xml, k = _strands_xml(w), 8
+    else:
+        xml, k = dense_scene_xml(0, w, h, name), 16
+    return rt.build_device_scene(rt.load_scene_from_string(xml), flatten_subdivisions=k,
+                                 device=cuda)
+
+
+def _assert_dense(dt, cam, cfg, frame, px_start, n_px, want_kind, fallback=True):
+    """Kernel with the scene's tables == kernel full sweep, bitwise; vs the
+    plain version under assert_parity; the walk's counters make sense."""
+    w = dt.width
+    assert tc.accel_kind(dt, cfg, n_px) == want_kind
+    tabs = tc.build_cand_tables(dt, cam, cfg, px_start, n_px)
+    assert tabs.dist_ordered and tc.seg_max_count(dt, tabs) is None
+    if want_kind == "chunk":
+        assert tabs.ids is None
+    elif fallback:
+        assert int(tabs.counts.max()) > tabs.ids.shape[-1], "premise: a list overflows"
+    tc.reset_launch_count()
+    kern = tc.trace_sums_flat(dt, cam, cfg, frame, px_start, n_px, tabs)
+    assert tc.LAUNCHES == 1
+    full = tc.trace_sums_flat(dt, cam, cfg, frame, px_start, n_px, None)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, full):
+        assert torch.equal(a, b)
+    assert float(kern[1].sum()) > 0.0
+    plain = tc.trace_sums_plain(dt, cam, cfg, frame, px_start, n_px, tabs)
+    rows = n_px // w
+    _assert_parity(_images(plain, rows, w, cfg), _images(kern, rows, w, cfg))
+    stats = tc.trace_walk_stats(dt, cam, cfg, frame, px_start, n_px, tabs)
+    assert 0 < stats["live_rays"] <= n_px * cfg.rays_per_pixel
+    assert stats["clean_hits"] + stats["grazes"] <= stats["live_rays"]
+    if want_kind == "seg":
+        assert 0 < stats["list_slots"] <= stats["live_rays"] * tabs.ids.shape[-1]
+    if fallback:
+        assert stats["fallback_rays"] > 0 and stats["chunks"] >= stats["fallback_rays"]
+        assert stats["chunk_pairs"] <= stats["chunks"] * tc.SEG_CHUNK
+    return stats
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("name", ["strokes", "strands"])
+def test_dense_lists_match_full_sweep_and_plain(cuda, name, exact):
+    size = 256
+    dt = _dense_case(cuda, name, size, size)
+    assert dt.s_pad > tc._cand_len_for(dt.s_pad) == 256
+    cfg = rt.RenderConfig(rays_per_pixel=64, use_denoiser=False, exact_silhouettes=exact)
+    # the strands' lists hold every passing segment at this size: the list
+    # walk and its exit alone; the strokes overflow into the chunk lists
+    _assert_dense(dt, rt.Camera(0.9, 3.0, -5.0), cfg, 3, 0, size * size, "seg",
+                  fallback=name == "strokes")
+
+
+@pytest.mark.parametrize("w,h,row0,rows", [
+    (256, 256, 64, 128),   # whole tiles, px_start > 0
+    (200, 136, 32, 72),    # ragged tiles in both directions, px_start > 0
+])
+def test_dense_lists_on_a_band(cuda, w, h, row0, rows):
+    dt = _dense_case(cuda, "lady_bug", w, h)
+    assert 1024 < dt.s_pad <= 1536
+    cfg = rt.RenderConfig(rays_per_pixel=64, use_denoiser=False)
+    _assert_dense(dt, rt.Camera(zoom_factor=0.9), cfg, 1, row0 * w, rows * w, "seg")
+
+
+def test_dense_block_geometry_scene(cuda):
+    """Past 4096 sub-segments: 2-sample wedges, 1024-ray blocks, 4-level
+    lists."""
+    w, h = 240, 136
+    dt = _dense_case(cuda, "dolphin", w, h)
+    assert dt.s_pad > tc.DENSE_SPAD and tc._cand_len_for(dt.s_pad) == 512
+    cfg = rt.RenderConfig(rays_per_pixel=16, use_denoiser=False)
+    assert tc._grid_geom(dt, cfg, w, w * h)[2] == 2
+    _assert_dense(dt, rt.Camera(), cfg, 0, 0, w * h, "seg")
+
+
+def test_chunk_lists_alone(cuda):
+    """More than 64 wedges: no segment lists, the chunk walk from an empty
+    state."""
+    size = 128
+    dt = _dense_case(cuda, "lady_bug", size, size)
+    cfg = rt.RenderConfig(rays_per_pixel=512, use_denoiser=False)
+    stats = _assert_dense(dt, rt.Camera(), cfg, 2, 0, size * size, "chunk")
+    assert stats["list_slots"] == 0
+
+
+def test_dense_tables_without_the_key_guard_launch(cuda):
+    """The JAX package's tables (distance bounds) go through the same
+    kernel; its exits are then exact only up to rays that graze a far chord
+    nearly parallel, so the bar is assert_parity, not bit equality."""
+    size = 256
+    dt = _dense_case(cuda, "strands", size, size)
+    cfg = rt.RenderConfig(rays_per_pixel=64, use_denoiser=False)
+    tabs = tc.build_cand_tables(dt, rt.Camera(), cfg, key_guard=False)
+    kern = tc.trace_sums_flat(dt, rt.Camera(), cfg, 0, 0, size * size, tabs)
+    full = tc.trace_sums_flat(dt, rt.Camera(), cfg, 0, 0, size * size, None)
+    _assert_parity(_images(full, size, size, cfg), _images(kern, size, size, cfg))
+
+
+def _event_ms(fn, reps=3):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+@pytest.mark.parametrize("kind,rpp", [("lady_bug", 256), ("dolphin", 64), ("lady_bug", 8)])
+def test_distance_bounds_alone_differ_from_the_guarded_launch_at_full_size(cuda, kind, rpp):
+    """What the key guard buys and costs on the generated dense scenes at
+    1920x1088: the same launch over the JAX package's tables (bounds of the
+    distance) misses far chords that a ray grazes nearly parallel, so some
+    pixels differ from the guarded launch, which equals the full sweep bit
+    for bit.  Prints (``-s``) the differing pixels, the slots tested per ray
+    and the time of both launches."""
+    w, h = 1920, 1088
+    n_px = w * h
+    dt = _dense_case(cuda, kind, w, h)
+    cfg = rt.RenderConfig(rays_per_pixel=rpp)
+    cam = rt.Camera()
+    row = {}
+    for label, guard in (("guarded", True), ("distance_bounds", False)):
+        tabs = tc.build_cand_tables(dt, cam, cfg, key_guard=guard)
+        ms, sums = _event_ms(lambda: tc.trace_sums_flat(dt, cam, cfg, 0, 0, n_px, tabs))
+        st = tc.trace_walk_stats(dt, cam, cfg, 0, 0, n_px, tabs)
+        live = max(st["live_rays"], 1)
+        row[label] = dict(ms=ms, sums=sums, slots=st["list_slots"] / live,
+                          pairs=(st["list_slots"] + st["chunk_pairs"]) / live,
+                          fallback=st["fallback_rays"] / live)
+        del tabs
+    full = tc.trace_sums_flat(dt, cam, cfg, 0, 0, n_px, None)
+    a, b = row["guarded"]["sums"], row["distance_bounds"]["sums"]
+    for x, y in zip(a, full):
+        assert torch.equal(x, y)
+    differ = (a[0] != b[0]).any(dim=1) | (a[1] != b[1]) | (a[2] != b[2])
+    (img_a, _), (img_b, _) = _images(a, h, w, cfg), _images(b, h, w, cfg)
+    d = (img_a - img_b).abs()
+    print(f"\n[distance_bounds:{kind}:{rpp}rpp] card={torch.cuda.get_device_name(0)} "
+          f"differing_pixels={int(differ.sum())} pixels={n_px} max_abs_diff={float(d.max()):.3e} "
+          f"share_above_1e3={float((d > 1e-3).float().mean()):.3e} "
+          + " ".join(f"{k}_ms={v['ms']:.3f} {k}_slots_per_ray={v['slots']:.2f} "
+                     f"{k}_pairs_per_ray={v['pairs']:.2f} {k}_fallback_share={v['fallback']:.5f}"
+                     for k, v in row.items()))
+    if rpp > 8:  # measured there; at two wedges only reported
+        assert int(differ.sum()) > 0
+    assert row["distance_bounds"]["slots"] < row["guarded"]["slots"]
+
+
+def test_dense_frame_with_the_unet(cuda):
+    w, h = 192, 128
+    dt = _dense_case(cuda, "lady_bug", w, h)
+    cfg = rt.RenderConfig(rays_per_pixel=32)
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device=cuda)
+    tabs = rt.build_cand_tables(dt, rt.Camera(), cfg)
+    st = rt.init_frame_state(w, h, device=cuda)
+    tc.reset_launch_count()
+    cc.reset_launch_count()
+    for _ in range(2):
+        img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net, cand_tables=tabs,
+                                  gather_len=rt.seg_max_count(dt, tabs))
+    assert tc.LAUNCHES == 2 and cc.LAUNCHES == 18
+    assert img.shape == (h, w, 4) and torch.isfinite(img).all() and st.flow_is_zero
+
+
+def test_wrapper_rejects_bad_dense_tables(cuda):
+    dt = _dense_case(cuda, "strands", 64, 64)
+    cfg = rt.RenderConfig(rays_per_pixel=16, use_denoiser=False)
+    tabs = tc.build_cand_tables(dt, rt.Camera(), cfg)
+    with pytest.raises(ValueError, match="scene circle"):
+        tc.trace_sums_flat(dt, rt.Camera(), cfg, 0, 0, 64 * 64, tabs._replace(circle=None))
+    with pytest.raises(ValueError, match="cand lbs"):
+        tc.trace_sums_flat(dt, rt.Camera(), cfg, 0, 0, 64 * 64,
+                           tabs._replace(lbs=tabs.lbs.double()))
+    with pytest.raises(ValueError, match="distance-ordered"):
+        tc.trace_walk_stats(dt, rt.Camera(), cfg, 0, 0, 64 * 64, tc.CandTables(tabs.ids, tabs.counts))
+
+
+# ---------------------------------------------------------------------------
 # 3x3 convolution kernel
 # ---------------------------------------------------------------------------
 
 BF = torch.bfloat16
-WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "weights", "denoiser_r3d.msgpack")
 
 
 def _conv_case(device, seed, h, w, cins, cout, ups):
