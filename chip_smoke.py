@@ -73,6 +73,11 @@ DN_FRAMES = 10
 # lady_bug-class scene; the dolphin-class scene at 64 rays per pixel.
 DENSE_RPP, DENSE_RPP_DOLPHIN, DENSE_FRAMES = 256, 64, 5
 DENSE_TILE_ROWS = 32  # rows of one pixel tile at both dense launch shapes
+CONV_REPS = 20  # timed calls per layer: a layer takes 0.1-0.3 ms
+# Frames timed on the card alone, each queued behind a sleep of SLEEP_CYCLES
+# clock cycles (~50-100 ms at the H100's clocks; a frame's enqueue takes
+# 4-14 ms).
+DEVICE_FRAMES, SLEEP_CYCLES = 3, 100_000_000
 WEIGHTS = pathlib.Path(__file__).resolve().parent / "weights" / "denoiser_r3d.msgpack"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).  The
 # 67e12 FP32 FLOP/s count a fused multiply-add as two operations; the trace
@@ -237,12 +242,12 @@ def measure_conv(name, kernel_fn, xs, ks, b, stride, relu, ups):
     layer: 2*9*Cin*Cout*H_out*W_out FLOP at the tensor-core peak, and every
     input, the kernels, the bias and the output moved once."""
     before = conv_cuda.LAUNCHES
-    ms, got = cuda_ms(kernel_fn, 5, warm_up=True)
-    require(conv_cuda.LAUNCHES == before + 6, f"{name}: one launch per call")
+    ms, got = cuda_ms(kernel_fn, CONV_REPS, warm_up=True)
+    require(conv_cuda.LAUNCHES == before + CONV_REPS + 1, f"{name}: one launch per call")
     plain_ms, ref = cuda_ms(lambda: conv_cuda.conv3x3_plain(xs, ks, b, stride, relu, ups), 1,
                             warm_up=True)
     equal, steps, err = conv_close(ref, got, b)
-    lib_ms, lib_out = cuda_ms(library_conv(xs, ks, b, stride, ups), 5, warm_up=True)
+    lib_ms, lib_out = cuda_ms(library_conv(xs, ks, b, stride, ups), CONV_REPS, warm_up=True)
     lib_out = lib_out[0].permute(1, 2, 0)
     lib_err = float((torch.relu(lib_out) if relu else lib_out).float().sub(got.float()).abs().max())
     cins = [x.shape[2] for x in xs]
@@ -259,6 +264,56 @@ def measure_conv(name, kernel_fn, xs, ks, b, stride, relu, ups):
     return dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, equal=equal,
                 steps=steps, err=err, flops=flops, bytes=n_bytes, ops_ms=ops_ms,
                 bytes_ms=bytes_ms)
+
+
+def conv_edge_cases(gen):
+    """[conv_parity:edge_*]: the kernel's edges at small size, seeded inputs
+    against the plain version under the same bars: Cin not a multiple of 8
+    (plain loads), an image smaller than one tile, one output row, stride
+    2 on an odd size that is no multiple of the tile, stride 2 over an
+    upsampled group, Cout above one block's 96 channels, and contiguous
+    operands at a storage offset of 2 or 8 bytes, which breaks 16-byte
+    alignment (plain loads)."""
+    bf = torch.bfloat16
+    cases = [  # name, h, w, channels per group, Cout, stride, relu, upsample, offset
+        ("edge_cin44_cout96", 24, 40, (44,), 96, 1, True, (False,), 0),
+        ("edge_smaller_than_tile", 3, 5, (24,), 24, 1, True, (False,), 0),
+        ("edge_one_row", 1, 37, (48,), 48, 1, True, (False,), 0),
+        ("edge_stride2_odd", 37, 53, (24,), 48, 2, True, (False,), 0),
+        ("edge_stride2_upsampled", 18, 22, (48, 24), 24, 2, True, (True, False), 0),
+        ("edge_cout136", 20, 24, (16,), 136, 1, True, (False,), 0),
+        ("edge_offset_2_bytes", 21, 35, (48, 24), 48, 1, True, (False, False), 1),
+        ("edge_offset_8_bytes", 21, 35, (48, 24), 48, 1, True, (False, False), 4),
+    ]
+
+    def at_offset(t, offset):
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        require(out.is_contiguous() and (offset == 0 or out.data_ptr() % 16 != 0),
+                "edge case operand layout")
+        return out
+
+    rows = []
+    for name, h, w, cins, cout, stride, relu, ups, offset in cases:
+        xs = [at_offset(torch.randn((h >> int(u), w >> int(u), c), generator=gen,
+                                    device="cuda").to(bf), offset) for c, u in zip(cins, ups)]
+        ks = [at_offset((torch.randn((3, 3, c, cout), generator=gen, device="cuda") * 0.1).to(bf),
+                        offset) for c in cins]
+        b = torch.randn((cout,), generator=gen, device="cuda").to(bf)
+        before = conv_cuda.LAUNCHES
+        got = conv_cuda.conv3x3(xs, ks, b, stride, relu, ups)
+        torch.cuda.synchronize()
+        require(conv_cuda.LAUNCHES == before + 1, f"{name}: one launch")
+        ref = conv_cuda.conv3x3_plain(xs, ks, b, stride, relu, ups)
+        require(got.shape == ref.shape and got.is_contiguous(), f"{name}: output shape")
+        equal, steps, err = conv_close(ref, got, b)
+        phase(f"conv_parity:{name}", shape=f"{h}x{w}x{'+'.join(map(str, cins))}->{cout}",
+              stride=stride, upsampled=sum(ups), storage_offset_bytes=2 * offset,
+              bitwise_equal=f"{equal:.6f}", max_share_of_rounding_bar=f"{steps:.3f}",
+              max_abs_err=f"{err:.3e}")
+        rows.append(dict(name=name, equal=equal, steps=steps, err=err))
+    return rows
 
 
 def conv_phases(net, smi):
@@ -289,10 +344,16 @@ def conv_phases(net, smi):
     same = measure_conv("conv3x3_same", lambda: conv_cuda.conv3x3_same(x, k, b),
                         [x], [k], b, 1, True, (False,))
     del xs, x
-    phase("conv_parity", layers=len(rows) + 1,
-          min_bitwise_equal=f"{min(r['equal'] for r in rows + [same]):.6f}",
-          max_share_of_rounding_bar=f"{max(r['steps'] for r in rows + [same]):.3f}",
+    edges = conv_edge_cases(gen)
+    phase("conv_parity", layers=len(rows) + 1, edge_cases=len(edges),
+          min_bitwise_equal=f"{min(r['equal'] for r in rows + [same] + edges):.6f}",
+          max_share_of_rounding_bar=f"{max(r['steps'] for r in rows + [same] + edges):.3f}",
           bar="equal>=0.99,diff<=2^-7*(2|y|+|b|)")
+    instances = conv_cuda.kernel_instances()
+    for i in instances:
+        phase(f"conv_kernel:np{i['np']}_s{i['stride']}", tile=f"{i['tile_rows']}x{i['tile_cols']}",
+              registers=i["registers"], dynamic_smem_bytes=i["dynamic_smem_bytes"],
+              static_smem_bytes=i["static_smem_bytes"], local_bytes=i["local_bytes"])
 
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "flops", "bytes",
                                                   "ops_ms", "bytes_ms")}
@@ -320,7 +381,10 @@ def conv_phases(net, smi):
         "library_ms": total["library_ms"],
         "min_bitwise_equal": min(r["equal"] for r in rows),
         "max_share_of_rounding_bar": max(r["steps"] for r in rows),
-        "layers": {r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms")} for r in rows},
+        "layers": {r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "equal", "steps")}
+                   | {"bound_ms": max(r["ops_ms"], r["bytes_ms"])} for r in rows},
+        "instantiations": instances,
+        "edge_cases": {r["name"]: {k: r[k] for k in ("equal", "steps", "err")} for r in edges},
         "conv3x3_same": {k: same[k] for k in ("ms", "plain_ms", "library_ms", "err")}
         | {"bound_ms": max(same["ops_ms"], same["bytes_ms"])},
         "card": smi,
@@ -340,6 +404,25 @@ def timed_frames(step, n):
     enqueue_ms = (time.perf_counter() - t_host) * 1e3 / n
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n, enqueue_ms
+
+
+def device_frame_ms(step, n=DEVICE_FRAMES):
+    """Device ms of one frame with the host out of the way: each frame is
+    queued behind a sleep kernel that outlasts its enqueue, so the card runs
+    it from a full queue.  Returns the mean over n frames; raises if the
+    card reached a frame before the host had queued all of it."""
+    total = 0.0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        step()
+        end.record()
+        require(not start.query(), "device frame time: the sleep ended before the frame was queued")
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / n
 
 
 def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoised_path"):
@@ -376,6 +459,12 @@ def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoise
     want_convs = 9 * n_frames if net is not None else 0
     require(trace_launches == n_frames, f"{label}: trace launches {trace_launches}")
     require(conv_launches == want_convs, f"{label}: conv launches {conv_launches} != {want_convs}")
+    device_ms = device_frame_ms(step)
+    # The card alone cannot take longer than the chained frame, which also
+    # waits for the host: a reading above it (beyond noise) is a fault of
+    # the measurement, not an idle share of 0.
+    require(device_ms <= frame_ms * 1.02,
+            f"{label}: the card alone {device_ms:.3f} ms > chained {frame_ms:.3f} ms")
 
     # The last frame again, by hand: prev_image is the denoised un-blurred
     # frame, the displayed image its blur, the flow all zero.
@@ -427,10 +516,13 @@ def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoise
             f"{label}: flow zero after the zoom frame")
     rest_ms, _ = timed_frames(step, 3)
     require(bool(torch.isfinite(holder["img"]).all()), f"{label}: finite image after the zoom")
-    require(holder["state"].frame == n_frames + 7, f"{label}: frame counter {holder['state'].frame}")
+    require(holder["state"].frame == n_frames + DEVICE_FRAMES + 7,
+            f"{label}: frame counter {holder['state'].frame}")
     phase(f"{path}:{label}", frames=n_frames, ms_per_frame=f"{frame_ms:.3f}",
           host_enqueue_ms_per_frame=f"{enqueue_ms:.3f}",
-          host_enqueue_ms_one_frame_queue_empty=f"{drained_ms:.3f}", no_host_sync=True,
+          host_enqueue_ms_one_frame_queue_empty=f"{drained_ms:.3f}",
+          device_ms_per_frame_queue_full=f"{device_ms:.3f}",
+          device_idle_share=f"{1.0 - device_ms / frame_ms:.4f}", no_host_sync=True,
           trace_launches=trace_launches, conv_launches=conv_launches,
           conv_launches_per_frame=conv_launches // n_frames, zoom_frame_ms=f"{zoom_ms:.3f}",
           zoom_tables_rebuild_s=f"{rebuild_s:.3f}",
@@ -438,7 +530,7 @@ def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoise
           mean_change_by_denoiser=f"{raw_err:.5f}", image_std=f"{spread:.4f}",
           prev_image="denoised_unblurred(bitwise)", flow_after_frame="zero")
     return dict(frame_ms=frame_ms, enqueue_ms=enqueue_ms, drained_ms=drained_ms,
-                conv_launches=conv_launches,
+                device_ms=device_ms, conv_launches=conv_launches,
                 trace_launches=trace_launches, state=holder["state"], cam=cam, tables=tables, gl=gl,
                 zoom_ms=zoom_ms, rebuild_s=rebuild_s)
 
@@ -581,6 +673,8 @@ def denoise_phases(smi):
                  denoised_frame_ms=learned["frame_ms"],
                  denoised_host_enqueue_ms=learned["enqueue_ms"],
                  denoised_host_enqueue_queue_empty_ms=learned["drained_ms"],
+                 denoised_device_ms=learned["device_ms"],
+                 analytic_device_ms=analytic["device_ms"],
                  analytic_frame_ms=analytic["frame_ms"],
                  denoise_parity_max_abs_diff=dmax, unet_ms=unet_ms)
     trace_entry = dict(denoised_launches=learned["trace_launches"],
@@ -806,14 +900,15 @@ def dense_phases():
     blur_ms, _ = cuda_ms(lambda: blur.variable_gaussian_blur(den, bmap, radius), 3)
     phase("dense_breakdown", trace_ms=f"{trace_ms:.3f}", apply_denoiser_ms=f"{den_ms:.3f}",
           blur_ms=f"{blur_ms:.3f}", blur_radius=radius,
-          frame_ms=f"{seq['frame_ms']:.3f}", host_enqueue_ms=f"{seq['enqueue_ms']:.3f}",
+          frame_ms=f"{seq['frame_ms']:.3f}", device_ms_per_frame=f"{seq['device_ms']:.3f}",
+          host_enqueue_ms=f"{seq['enqueue_ms']:.3f}",
           host_enqueue_ms_queue_empty=f"{seq['drained_ms']:.3f}",
           trace_share_of_frame=f"{trace_ms / seq['frame_ms']:.4f}",
           rays_per_s=f"{n_px * DENSE_RPP / (trace_ms * 1e-3):.4e}",
           table_build_seconds=f"{build_s:.3f}")
     lb_stats = dense_stats("lady_bug", dscene, cfg, cam, tables, trace_ms, need_fallback=True)
-    path = {k: seq[k] for k in ("frame_ms", "enqueue_ms", "drained_ms", "zoom_ms", "rebuild_s",
-                                "trace_launches")}
+    path = {k: seq[k] for k in ("frame_ms", "enqueue_ms", "drained_ms", "device_ms", "zoom_ms",
+                                "rebuild_s", "trace_launches")}
     del tables, sums, raw, bmap, den, seq, state
     few = dense_few_wedges(dscene, cam)
 
@@ -859,7 +954,8 @@ def dense_phases():
     return dict(
         dense_launches=path["trace_launches"], dense_ms=trace_ms, dense_frame_ms=path["frame_ms"],
         dense_host_enqueue_ms=path["enqueue_ms"],
-        dense_host_enqueue_queue_empty_ms=path["drained_ms"], dense_zoom_frame_ms=path["zoom_ms"],
+        dense_host_enqueue_queue_empty_ms=path["drained_ms"], dense_device_ms=path["device_ms"],
+        dense_zoom_frame_ms=path["zoom_ms"],
         dense_zoom_tables_rebuild_s=path["rebuild_s"],
         dense_max_abs_err=rest["max_abs_err"], dense_zoom_max_abs_err=zoom["max_abs_err"],
         dense_plain_band_ms=rest["plain_ms"], dense_plain_band_rays=band_rays,

@@ -12,27 +12,53 @@
 // float32 accumulation, the accumulator rounded to bf16 (nearest even) BEFORE
 // the bf16 bias is added, that sum rounded to bf16 again, optional ReLU.
 // Taps outside the image read zero by predicate: no padded ring, no guard
-// rows, no mask input, no channel padding.  A group may be read through a
-// nearest 2x upsample (x[i >> 1, j >> 1]), so the decoder never writes an
-// upsampled tensor.  A bf16 x bf16 product is exact in float32, so the only
-// freedom against the plain PyTorch version (ops/conv_cuda.py
+// rows, no mask input, no channel padding in memory.  A group may be read
+// through a nearest 2x upsample (x[i >> 1, j >> 1]), so the decoder never
+// writes an upsampled tensor.  A bf16 x bf16 product is exact in float32, so
+// the only freedom against the plain PyTorch version (ops/conv_cuda.py
 // conv3x3_plain) is the order of the float32 sum.
 //
-// Bound on this card: bytes.  The nine layers of the shipped UNet at
-// 1920x1088 need ~1.15e11 multiply-adds against ~1.2 GB moved; at the dense
-// bf16 tensor-core rate the multiply-adds take less time than the bytes at
-// the memory rate, and both well under a millisecond.  Layer by layer only
-// the two with the most channels per byte moved (enc2b, 96 -> 96, and dec1,
-// 96 + 48 -> 48 with the first group read through the upsample) are bound
-// by operations.  This first version is far from either bound: it is a
-// direct convolution on the FP32 pipes.  One block
-// computes a tile of 32 x (4 * PX) output pixels for CO_T output channels.
-// The input halo tile (8 channels at a time, bf16) and that chunk's weights
-// (float32) are staged in shared memory; a thread owns PX vertically adjacent
-// pixels of one column and CO_T channels, all in registers, so one input
-// value feeds up to 3 * CO_T FMAs and one broadcast float4 of weights 4 * PX.
-// Lanes of a warp read neighbouring columns: no bank conflicts at stride 1.
-// Tensor-core MMA, TMA staging and fusing layers are later work.
+// What bounds it on this card.  The nine layers of the shipped UNet at
+// 1920x1088 move ~1.2 GB and do 2.3e11 FLOP: 0.36 ms at 3.35 TB/s against
+// 0.23 ms at the bf16 tensor-core rate (989e12/s).  Per layer, the larger of
+// the two (ms; B bytes, F operations):
+//   enc0a 11 -> 24          0.044 B     enc2a 48 -> 96, stride 2   0.022 B
+//   enc0b 24 -> 24          0.060 B     enc2b 96 -> 96 at 1/4      0.022 F
+//   enc1a 24 -> 48, str. 2  0.045 B     dec1  up(96) + 48 -> 48    0.066 F
+//   enc1b 48 -> 48 at 1/2   0.030 B     dec0  up(48) + 24 -> 24    0.075 B
+//   out   24 -> 3           0.034 B
+// On the FP32 pipes (67e12/s) the same FLOP take 3.4 ms, about ten times
+// the bytes: so the multiply-adds run on the tensor cores, a tile's input (with
+// its halo) is staged once for all of Cout, and the output is written once,
+// 16 bytes at a time.
+//
+// Design: an implicit GEMM on `mma.sync.m16n8k16` (bf16 in, f32 out).
+//   M = output pixels of a block's tile, TH rows x 16 columns; one m16
+//       fragment is 16 neighbouring pixels of one output row.
+//   N = all of Cout in one block, padded to NP (8, 24, 32, 48, 96) with zero
+//       weights, so a tile's input is staged once, not once per slice of
+//       Cout.  Only Cout > 96 walks 96-channel slices over blockIdx.z.
+//   K = sum over groups of 9 taps x Cin, walked as (group, 16-channel
+//       chunk, tap).  A chunk's halo tile sits in shared memory as
+//       [2][rows][cols][8 x bf16]: `ldmatrix.x4` takes one 16-byte pixel
+//       row per thread, so the tap offset, the stride-2 step and the >> 1 of
+//       an upsampled group are all in the address and no im2col is written.
+//       At stride 1 the eight rows of one 8x8 matrix are eight neighbouring
+//       pixels, 128 contiguous bytes: free of bank conflicts.  The chunk's
+//       weights are the K x N tile [9][16][PITCH] bf16, read with
+//       `ldmatrix.x4.trans`; PITCH is an odd number of 16-byte units, so
+//       their rows fall into eight different bank groups.
+// Staging: `cp.async` global -> shared (16-byte copies where a group's Cin
+// is a multiple of 8 and its base is 16-byte aligned; plain loads
+// otherwise, e.g. Cin 11, 28 and 44 or storage at an unaligned offset),
+// zero-filled at the image edge and past Cin, double-buffered: chunk c + 1
+// loads while chunk c's MMAs run.  An upsampled group stages its half-size
+// tile only.  Epilogue: the fragments go through the rounding above into a
+// shared tile, from which each thread writes 16 contiguous bytes of a
+// pixel's channels (scalar stores where Cout is not a multiple of 8).
+// Tiles: 4 warps; a warp owns WM m16 rows and all of N (WM = 4 up to NP 48,
+// 2 above), so a thread keeps at most 96 accumulators; the two tiles that
+// do at stride 1 are held to 168 registers, so three blocks share an SM.
 //
 // Plain C entry, loaded with ctypes (ops/_build.py); launches on the stream
 // it is given, allocates nothing, does not synchronise.
@@ -45,15 +71,18 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int TW = 32;        // output columns per block: one per lane
-constexpr int CK = 8;         // input channels staged per step (16 bytes of bf16)
+constexpr int TW = 16;        // output columns per block: the m16 of one fragment
+constexpr int CK = 16;        // input channels per K chunk: the k16 of one MMA
+constexpr int STAGES = 2;     // chunks in flight in shared memory
 constexpr int MAX_GROUPS = 3;
+constexpr int SMEM_PER_SM = 233472;  // an H100 SM's shared memory; 1 KB of it per block is reserved
 
 struct Group {
   const uint16_t* x;  // (h_in >> shift, w_in >> shift, cin) bf16 bits
   const uint16_t* k;  // (3, 3, cin, cout) bf16 bits
   int cin;
   int shift;          // 1: read through a nearest 2x upsample
+  int chunk_end;      // K chunks of this group and the ones before it
 };
 
 struct Params {
@@ -67,6 +96,32 @@ struct Params {
   int relu;
 };
 
+// Shapes of one instantiation: NP padded output channels, stride S.
+template <int NP, int S>
+struct Tile {
+  static constexpr int NT = NP / 8;                  // n8 fragments
+  static constexpr int WM = NP <= 48 ? 4 : 2;        // m16 rows per warp
+  static constexpr int TH = WARPS * WM;              // output rows per block
+  static constexpr int IN_H = (TH - 1) * S + 3;      // halo tile
+  static constexpr int IN_W = (TW - 1) * S + 3;
+  static constexpr int PITCH = NP % 16 == 8 ? NP : NP + 8;  // odd 16-byte units
+  static constexpr int X_ELEMS = 2 * IN_H * IN_W * 8;
+  static constexpr int W_ELEMS = 9 * CK * PITCH;
+  static constexpr int STAGE_ELEMS = X_ELEMS + W_ELEMS;
+  static constexpr int OUT_ELEMS = TH * TW * PITCH;
+  static constexpr int SMEM_BYTES =
+      2 * (STAGES * STAGE_ELEMS > OUT_ELEMS ? STAGES * STAGE_ELEMS : OUT_ELEMS);
+  // The tiles with 96 accumulators per thread at stride 1 (NP 48 and 96)
+  // fit three blocks on an SM by shared memory; left to itself ptxas may
+  // give them a few registers over 168 and so lose a third of the blocks
+  // (enc1b, enc2b, dec1).  They are built with a bound of three blocks.
+  // Any bound, even of one block, makes ptxas spend registers up to it, so
+  // the other tiles are built without one.
+  static constexpr bool THREE_BLOCKS = S == 1 && WM * NT == 24;
+  static_assert(!THREE_BLOCKS || 3 * (SMEM_BYTES + 1024) <= SMEM_PER_SM, "three blocks fit");
+  static_assert(NP % 8 == 0, "N is whole n8 fragments");
+};
+
 __device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
   return __uint_as_float(((uint32_t)b) << 16);
 }
@@ -75,157 +130,335 @@ __device__ __forceinline__ float round_to_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int CO_T, int PX, int S>
-__global__ void __launch_bounds__(THREADS) conv3x3_kernel(const Params P) {
-  constexpr int TH = WARPS * PX;          // output rows per block
-  constexpr int IN_H = (TH - 1) * S + 3;  // input halo tile
-  constexpr int IN_W = (TW - 1) * S + 3;
-  constexpr int NR = (PX - 1) * S + 3;    // input rows one thread touches
-  static_assert(CO_T % 4 == 0, "weights are read as float4");
+// Copy 16 bytes from global to shared; !ok writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
 
-  __shared__ uint16_t xs[CK][IN_H][IN_W];
-  __shared__ __align__(16) float ws[9][CK][CO_T];
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int ox = blockIdx.x * TW + lane;
-  const int oy0 = blockIdx.y * TH + warp * PX;
-  const int co0 = blockIdx.z * CO_T;
-  const int in_r0 = blockIdx.y * TH * S - P.pad_top;
-  const int in_c0 = blockIdx.x * TW * S - P.pad_left;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  float acc[PX][CO_T];
-#pragma unroll
-  for (int p = 0; p < PX; ++p)
-#pragma unroll
-    for (int c = 0; c < CO_T; ++c) acc[p][c] = 0.0f;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
-  for (int gi = 0; gi < P.n_groups; ++gi) {
-    const Group G = P.g[gi];
-    const int src_w = P.w_in >> G.shift;
-    // 16-byte loads need whole 8-channel steps at 16-byte aligned addresses.
-    const bool vec = (G.cin % CK == 0) && ((reinterpret_cast<uintptr_t>(G.x) & 15) == 0);
-    for (int ci0 = 0; ci0 < G.cin; ci0 += CK) {
-      const int ckn = min(CK, G.cin - ci0);
-      __syncthreads();  // the previous step's reads of xs and ws are done
-      for (int i = threadIdx.x; i < IN_H * IN_W; i += THREADS) {
-        const int r = i / IN_W, c = i - r * IN_W;
-        const int gr = in_r0 + r, gc = in_c0 + c;
-        union {
-          uint4 v;
-          uint16_t h[CK];
-        } u;
-        u.v = make_uint4(0u, 0u, 0u, 0u);
-        if (gr >= 0 && gr < P.h_in && gc >= 0 && gc < P.w_in) {
-          const uint16_t* src =
-              G.x + ((size_t)(gr >> G.shift) * src_w + (gc >> G.shift)) * G.cin + ci0;
-          if (vec) {
-            u.v = __ldg(reinterpret_cast<const uint4*>(src));
-          } else {
-            for (int j = 0; j < ckn; ++j) u.h[j] = __ldg(src + j);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < CK; ++j) xs[j][r][c] = u.h[j];
-      }
-      for (int i = threadIdx.x; i < 9 * CK * CO_T; i += THREADS) {
-        const int c = i % CO_T;
-        const int t = i / CO_T;
-        const int ci = t % CK, tap = t / CK;
-        float v = 0.0f;
-        if (ci < ckn && co0 + c < P.cout)
-          v = bf16_bits_to_float(__ldg(G.k + ((size_t)tap * G.cin + ci0 + ci) * P.cout + co0 + c));
-        ws[tap][ci][c] = v;
-      }
-      __syncthreads();
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
-#pragma unroll 1
-      for (int ci = 0; ci < ckn; ++ci) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          float xr[NR];
-#pragma unroll
-          for (int r = 0; r < NR; ++r)
-            xr[r] = bf16_bits_to_float(xs[ci][warp * PX * S + r][lane * S + dx]);
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            const float4* w4 = reinterpret_cast<const float4*>(&ws[dy * 3 + dx][ci][0]);
-#pragma unroll
-            for (int c4 = 0; c4 < CO_T / 4; ++c4) {
-              const float4 w = w4[c4];
-#pragma unroll
-              for (int p = 0; p < PX; ++p) {
-                const float x = xr[p * S + dy];
-                acc[p][c4 * 4 + 0] = fmaf(x, w.x, acc[p][c4 * 4 + 0]);
-                acc[p][c4 * 4 + 1] = fmaf(x, w.y, acc[p][c4 * 4 + 1]);
-                acc[p][c4 * 4 + 2] = fmaf(x, w.z, acc[p][c4 * 4 + 2]);
-                acc[p][c4 * 4 + 3] = fmaf(x, w.w, acc[p][c4 * 4 + 3]);
-              }
-            }
-          }
-        }
-      }
-    }
-  }
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
 
-  // Epilogue: round the accumulator to bf16, add the bf16 bias (the sum of
-  // two bf16 values in float32, rounded to bf16, is the bf16 add), ReLU.
-  if (ox >= P.w_out) return;
-  const bool vec_out = (P.cout % 8 == 0) && ((reinterpret_cast<uintptr_t>(P.out) & 15) == 0);
-#pragma unroll
-  for (int p = 0; p < PX; ++p) {
-    const int oy = oy0 + p;
-    if (oy >= P.h_out) break;
-    uint16_t* dst = P.out + ((size_t)oy * P.w_out + ox) * P.cout + co0;
-#pragma unroll
-    for (int c8 = 0; c8 < CO_T; c8 += 8) {
+// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ Group group_of(const Params& P, int gi) {
+  return gi == 0 ? P.g[0] : (gi == 1 ? P.g[1] : P.g[2]);
+}
+
+// Whether a group's input can be staged by 16-byte copies: Cin a multiple
+// of 8 and the base pointer 16-byte aligned.  Otherwise plain loads.
+__device__ __forceinline__ bool copies16(const void* p, int cin) {
+  return cin % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Stage K chunk `chunk` (its group's halo tile and its weights) into `xs`,
+// `ws`: cp.async where the layout allows, plain loads otherwise.
+template <int NP, int S>
+__device__ __forceinline__ void load_chunk(const Params& P, int chunk, uint16_t* xs, uint16_t* ws,
+                                           int in_r0, int in_c0, int n0) {
+  using T = Tile<NP, S>;
+  int gi = 0;
+  while (gi + 1 < P.n_groups && chunk >= group_of(P, gi).chunk_end) ++gi;
+  const Group G = group_of(P, gi);
+  const int ci0 = (chunk - (gi == 0 ? 0 : group_of(P, gi - 1).chunk_end)) * CK;
+
+  // Halo tile of the source image: rows and columns as stored (half size
+  // for an upsampled group), zero outside the image and past Cin.
+  const int s = G.shift;
+  const int src_h = P.h_in >> s, src_w = P.w_in >> s;
+  const int r0 = in_r0 >> s, c0 = in_c0 >> s;
+  const int rh = ((in_r0 + T::IN_H - 1) >> s) - r0 + 1;
+  const int rw = ((in_c0 + T::IN_W - 1) >> s) - c0 + 1;
+  const int cells = rh * rw;
+  const bool vec = copies16(G.x, G.cin);
+  for (int i = threadIdx.x; i < 2 * cells; i += THREADS) {
+    const int half = i >= cells;
+    const int rc = i - half * cells;
+    const int r = rc / rw, c = rc - r * rw;
+    const int sr = r0 + r, sc = c0 + c;
+    const bool inside = sr >= 0 && sr < src_h && sc >= 0 && sc < src_w;
+    const int ch = ci0 + half * 8;
+    uint16_t* dst = xs + ((half * T::IN_H + r) * T::IN_W + c) * 8;
+    const uint16_t* src = G.x + ((size_t)(inside ? sr : 0) * src_w + (inside ? sc : 0)) * G.cin;
+    if (vec) {
+      const bool ok = inside && ch < G.cin;
+      cp_async16(smem_addr(dst), ok ? src + ch : G.x, ok);
+    } else {
       union {
         uint4 v;
         uint16_t h[8];
-      } y;
-      y.v = make_uint4(0u, 0u, 0u, 0u);
+      } u;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c8 + j;
-        if (c < CO_T && co0 + c < P.cout) {
-          const float b = bf16_bits_to_float(__ldg(P.bias + co0 + c));
-          float v = round_to_bf16(round_to_bf16(acc[p][c]) + b);
-          if (P.relu) v = fmaxf(v, 0.0f);
-          y.h[j] = float_to_bf16_bits(v);
-        }
-      }
-      if (vec_out && co0 + c8 + 8 <= P.cout) {
-        *reinterpret_cast<uint4*>(dst + c8) = y.v;
-      } else {
+      for (int j = 0; j < 8; ++j) u.h[j] = (inside && ch + j < G.cin) ? __ldg(src + ch + j) : 0;
+      *reinterpret_cast<uint4*>(dst) = u.v;
+    }
+  }
+
+  // Weights of the chunk: ws[tap][k][n] = k_g[tap][ci0 + k][n0 + n], zero
+  // past Cin and past Cout.
+  const bool wvec = P.cout % 8 == 0 && (reinterpret_cast<uintptr_t>(G.k) & 15) == 0;
+  for (int i = threadIdx.x; i < 9 * CK * T::NT; i += THREADS) {
+    const int row = i / T::NT, seg = i - row * T::NT;
+    const int tap = row / CK, k = row - tap * CK;
+    const int ci = ci0 + k, n = n0 + seg * 8;
+    uint16_t* dst = ws + row * T::PITCH + seg * 8;
+    const uint16_t* src = G.k + ((size_t)tap * G.cin + (ci < G.cin ? ci : 0)) * P.cout;
+    if (wvec) {
+      const bool ok = ci < G.cin && n < P.cout;
+      cp_async16(smem_addr(dst), ok ? src + n : G.k, ok);
+    } else {
+      union {
+        uint4 v;
+        uint16_t h[8];
+      } u;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (c8 + j < CO_T && co0 + c8 + j < P.cout) dst[c8 + j] = y.h[j];
-      }
+      for (int j = 0; j < 8; ++j) u.h[j] = (ci < G.cin && n + j < P.cout) ? __ldg(src + n + j) : 0;
+      *reinterpret_cast<uint4*>(dst) = u.v;
     }
   }
 }
 
-template <int CO_T, int PX, int S>
+template <int NP, int S>
+__device__ __forceinline__ void conv3x3_tile(const Params& P) {
+  using T = Tile<NP, S>;
+  constexpr int WM = T::WM, NT = T::NT;
+  extern __shared__ __align__(16) uint16_t smem[];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int in_r0 = blockIdx.y * T::TH * S - P.pad_top;
+  const int in_c0 = blockIdx.x * TW * S - P.pad_left;
+  const int n0 = blockIdx.z * NP;
+  const int n_chunks = group_of(P, P.n_groups - 1).chunk_end;
+
+  float acc[WM][NT][4];
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // This thread's ldmatrix row of an A fragment: pixel px of the 16, the
+  // first or second 8 channels of the chunk.  Of a B fragment: row k of the
+  // chunk's 16, the first or second n8 fragment of the pair.
+  const int px = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_half = lane >> 4;
+  const int b_k = lane & 15, b_pair = lane >> 4;
+  const uint32_t smem0 = smem_addr(smem);
+
+  load_chunk<NP, S>(P, 0, smem, smem + T::X_ELEMS, in_r0, in_c0, n0);
+  cp_async_commit();
+  int gi = 0;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk landed for all threads; chunk - 1's buffer is free
+    if (chunk + 1 < n_chunks) {
+      uint16_t* next = smem + ((chunk + 1) % STAGES) * T::STAGE_ELEMS;
+      load_chunk<NP, S>(P, chunk + 1, next, next + T::X_ELEMS, in_r0, in_c0, n0);
+    }
+    cp_async_commit();
+
+    while (chunk >= group_of(P, gi).chunk_end) ++gi;
+    const int s = group_of(P, gi).shift;
+    // Tap (dy, dx) of output pixel (row, px) reads staged cell
+    // (((in_r0 + row * S + dy) >> s) - (in_r0 >> s), same for columns).
+    int a_row[WM][3], a_col[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      a_col[d] = ((in_c0 + px * S + d) >> s) - (in_c0 >> s);
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+        a_row[i][d] = (a_half * T::IN_H + ((in_r0 + (warp * WM + i) * S + d) >> s) - (in_r0 >> s)) *
+                      T::IN_W;
+    }
+    const uint32_t xs = smem0 + (chunk % STAGES) * T::STAGE_ELEMS * 2;
+    const uint32_t ws = xs + T::X_ELEMS * 2 + (b_k * T::PITCH + b_pair * 8) * 2;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        uint32_t a[WM][4];
+#pragma unroll
+        for (int i = 0; i < WM; ++i) ldmatrix_x4(a[i], xs + (a_row[i][dy] + a_col[dx]) * 16);
+        const uint32_t wt = ws + (dy * 3 + dx) * CK * T::PITCH * 2;
+#pragma unroll
+        for (int j = 0; j + 1 < NT; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, wt + j * 16);
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+            mma_bf16(acc[i][j], a[i], b[0], b[1]);
+            mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+          }
+        }
+        if constexpr (NT % 2 == 1) {
+          uint32_t b0, b1;
+          ldmatrix_x2_trans(b0, b1, wt + (NT - 1) * 16 - b_pair * 16);
+#pragma unroll
+          for (int i = 0; i < WM; ++i) mma_bf16(acc[i][NT - 1], a[i], b0, b1);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the stages: reuse them for the output
+
+  // Epilogue: round the accumulator to bf16, add the bf16 bias (the sum of
+  // two bf16 values in float32, rounded to bf16, is the bf16 add), ReLU;
+  // into out_s[pixel][channel] of the tile.
+  uint16_t* out_s = smem;
+  const int q = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int n = j * 8 + c2;
+    const float b0 = n0 + n < P.cout ? bf16_bits_to_float(__ldg(P.bias + n0 + n)) : 0.0f;
+    const float b1 = n0 + n + 1 < P.cout ? bf16_bits_to_float(__ldg(P.bias + n0 + n + 1)) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = round_to_bf16(round_to_bf16(acc[i][j][2 * h]) + b0);
+        float v1 = round_to_bf16(round_to_bf16(acc[i][j][2 * h + 1]) + b1);
+        if (P.relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        const __nv_bfloat162 y = __floats2bfloat162_rn(v0, v1);
+        const int p = (warp * WM + i) * TW + q + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(out_s + p * T::PITCH + n) = y;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Write the tile: 16 contiguous bytes per thread where the layout allows.
+  const int oy0 = blockIdx.y * T::TH, ox0 = blockIdx.x * TW;
+  const int nc = min(NP, P.cout - n0);
+  if (P.cout % 8 == 0 && (reinterpret_cast<uintptr_t>(P.out) & 15) == 0) {
+    const int segs = nc / 8;
+    for (int i = threadIdx.x; i < T::TH * TW * segs; i += THREADS) {
+      const int p = i / segs, seg = i - p * segs;
+      const int oy = oy0 + p / TW, ox = ox0 + p % TW;
+      if (oy < P.h_out && ox < P.w_out)
+        *reinterpret_cast<uint4*>(P.out + ((size_t)oy * P.w_out + ox) * P.cout + n0 + seg * 8) =
+            *reinterpret_cast<const uint4*>(out_s + p * T::PITCH + seg * 8);
+    }
+  } else {
+    for (int i = threadIdx.x; i < T::TH * TW * nc; i += THREADS) {
+      const int p = i / nc, n = i - p * nc;
+      const int oy = oy0 + p / TW, ox = ox0 + p % TW;
+      if (oy < P.h_out && ox < P.w_out)
+        P.out[((size_t)oy * P.w_out + ox) * P.cout + n0 + n] = out_s[p * T::PITCH + n];
+    }
+  }
+}
+
+template <int NP, int S>
+__global__ void __launch_bounds__(THREADS) conv3x3_kernel(const Params P) {
+  conv3x3_tile<NP, S>(P);
+}
+
+template <int NP, int S>
+__global__ void __launch_bounds__(THREADS, 3) conv3x3_kernel_3blocks(const Params P) {
+  conv3x3_tile<NP, S>(P);
+}
+
+using KernelFn = void (*)(const Params);
+
+template <int NP, int S>
+KernelFn kernel_of() {
+  if constexpr (Tile<NP, S>::THREE_BLOCKS)
+    return conv3x3_kernel_3blocks<NP, S>;
+  else
+    return conv3x3_kernel<NP, S>;
+}
+
+template <int NP, int S>
 int launch(const Params& P, cudaStream_t stream) {
-  constexpr int TH = WARPS * PX;
-  dim3 grid((P.w_out + TW - 1) / TW, (P.h_out + TH - 1) / TH, (P.cout + CO_T - 1) / CO_T);
-  conv3x3_kernel<CO_T, PX, S><<<grid, THREADS, 0, stream>>>(P);
+  using T = Tile<NP, S>;
+  // Above 48 KB a block's dynamic shared memory must be allowed, once per
+  // instantiation and device.
+  static uint64_t allowed = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!(allowed >> dev & 1)) {
+    err = cudaFuncSetAttribute(kernel_of<NP, S>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    allowed |= 1ull << dev;
+  }
+  dim3 grid((P.w_out + TW - 1) / TW, (P.h_out + T::TH - 1) / T::TH, (P.cout + NP - 1) / NP);
+  const KernelFn kernel = kernel_of<NP, S>();
+  kernel<<<grid, THREADS, T::SMEM_BYTES, stream>>>(P);
   return (int)cudaGetLastError();
 }
 
 template <int S>
 int dispatch(const Params& P, cudaStream_t stream) {
-  // Tile of output channels and pixels a thread keeps in registers (96
-  // accumulators at most): narrow outputs take 4 channels, widths that are a
-  // multiple of 48 take 48 x 2 pixels, everything else 24 x 4 pixels.
-  if (P.cout <= 4) return launch<4, 4, S>(P, stream);
-  if (P.cout % 48 == 0) return launch<48, 2, S>(P, stream);
-  return launch<24, 4, S>(P, stream);
+  // N padded to the next of 8, 24, 32, 48, 96 output channels (3, 24, 28,
+  // 48, 96 in the shipped networks); Cout > 96 in 96-channel slices.
+  if (P.cout <= 8) return launch<8, S>(P, stream);
+  if (P.cout <= 24) return launch<24, S>(P, stream);
+  if (P.cout <= 32) return launch<32, S>(P, stream);
+  if (P.cout <= 48) return launch<48, S>(P, stream);
+  return launch<96, S>(P, stream);
 }
+
+// What the build made of one instantiation: NP, stride, tile rows, tile
+// columns, registers per thread, dynamic shared bytes, static shared bytes,
+// local (spilled) bytes per thread.
+template <int NP, int S>
+int info(int* out) {
+  using T = Tile<NP, S>;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel_of<NP, S>());
+  if (err != cudaSuccess) return (int)err;
+  const int v[8] = {NP, S, T::TH, TW, a.numRegs, T::SMEM_BYTES, (int)a.sharedSizeBytes,
+                    (int)a.localSizeBytes};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+using InfoFn = int (*)(int*);
+constexpr InfoFn INSTANCES[] = {
+    info<8, 1>, info<24, 1>, info<32, 1>, info<48, 1>, info<96, 1>,
+    info<8, 2>, info<24, 2>, info<32, 2>, info<48, 2>, info<96, 2>,
+};
+constexpr int N_INSTANCES = sizeof(INSTANCES) / sizeof(INSTANCES[0]);
 
 }  // namespace
 
@@ -248,13 +481,17 @@ extern "C" int rtdc_conv3x3(const void* x0, const void* x1, const void* x2,
   const void* ks[MAX_GROUPS] = {k0, k1, k2};
   const int cins[MAX_GROUPS] = {cin0, cin1, cin2};
   const int ups[MAX_GROUPS] = {up0, up1, up2};
+  int chunks = 0;
   for (int i = 0; i < MAX_GROUPS; ++i) {
     P.g[i].x = static_cast<const uint16_t*>(xs[i]);
     P.g[i].k = static_cast<const uint16_t*>(ks[i]);
     P.g[i].cin = cins[i];
     P.g[i].shift = ups[i] ? 1 : 0;
-    if (i < n_groups && (xs[i] == nullptr || ks[i] == nullptr || cins[i] < 1))
-      return (int)cudaErrorInvalidValue;
+    if (i < n_groups) {
+      if (xs[i] == nullptr || ks[i] == nullptr || cins[i] < 1) return (int)cudaErrorInvalidValue;
+      chunks += (cins[i] + CK - 1) / CK;
+    }
+    P.g[i].chunk_end = chunks;
   }
   P.n_groups = n_groups;
   P.bias = static_cast<const uint16_t*>(bias);
@@ -269,6 +506,14 @@ extern "C" int rtdc_conv3x3(const void* x0, const void* x1, const void* x2,
   P.relu = relu;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return stride == 1 ? dispatch<1>(P, s) : dispatch<2>(P, s);
+}
+
+// Instantiation i of the kernel into out[8] (see info above); i < 0: the
+// number of instantiations.
+extern "C" int rtdc_conv3x3_info(int i, int* out) {
+  if (i < 0) return N_INSTANCES;
+  if (i >= N_INSTANCES || out == nullptr) return (int)cudaErrorInvalidValue;
+  return INSTANCES[i](out);
 }
 
 extern "C" const char* rtdc_error_string(int err) {

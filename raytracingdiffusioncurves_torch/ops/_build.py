@@ -13,8 +13,8 @@ and square root are nvcc's defaults; ``-Xptxas -v`` writes each kernel's
 registers, shared memory and spills to the build log.  Each source adds its
 own flags (``SOURCE_FLAGS``): the trace kernel builds with ``--fmad=false``
 so that every multiply and add rounds on its own, as in its plain PyTorch
-version; the convolution's products are exact in float32, so it keeps nvcc's
-fused multiply-add.
+version; the convolution's products are exact in float32 and summed by the
+tensor cores, so it needs no flag of its own.
 
 This module is imported only by code that launches a kernel: the CPU tests
 never need nvcc.
@@ -75,6 +75,7 @@ SIGNATURES = {
              _P],  # stream
             _I,
         ),
+        "rtdc_conv3x3_info": ([_I, _P], _I),  # instantiation, int[8] out
         "rtdc_error_string": ([_I], ctypes.c_char_p),
     },
 }

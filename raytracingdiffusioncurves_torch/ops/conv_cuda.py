@@ -12,9 +12,12 @@ the accumulator rounded to bf16 *before* the bf16 bias is added (what
 ReLU.  A group may be read through a nearest 2x upsample.  On CUDA tensors
 it launches the hand-written kernel ``csrc/conv3x3.cu``, which replaces the
 JAX package's Pallas kernels ``ops/conv_pallas.py::_flat_kernel``
-(``conv3x3_flat``) and ``::_conv_kernel`` (``conv3x3_same``); on CPU tensors
-it runs ``conv3x3_plain``.  There is no fallback between the two: a CUDA
-tensor either goes through the kernel or raises.
+(``conv3x3_flat``) and ``::_conv_kernel`` (``conv3x3_same``): an implicit
+GEMM on the tensor cores (``mma.sync`` m16n8k16, bf16 in, float32
+accumulate) over halo tiles staged in shared memory with ``cp.async``, all
+of Cout in one block.  On CPU tensors it runs ``conv3x3_plain``.  There is
+no fallback between the two: a CUDA tensor either goes through the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -174,4 +177,23 @@ def _conv3x3_cuda(xs, ks, b, stride, relu, upsample) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: {_build.error_string(lib, err)}")
     LAUNCHES += 1
+    return out
+
+
+def kernel_instances() -> list[dict]:
+    """What the build made of each instantiation of the kernel (padded
+    output channels, stride): its tile, registers per thread, shared memory
+    and spilled bytes, from ``cudaFuncGetAttributes`` on the card."""
+    from . import _build
+
+    lib = _build.load("conv3x3")
+    keys = ("np", "stride", "tile_rows", "tile_cols", "registers", "dynamic_smem_bytes",
+            "static_smem_bytes", "local_bytes")
+    out = []
+    for i in range(lib.rtdc_conv3x3_info(-1, None)):
+        vals = (ctypes.c_int * len(keys))()
+        err = lib.rtdc_conv3x3_info(i, vals)
+        if err != 0:
+            raise RuntimeError(f"conv3x3 kernel attributes: {_build.error_string(lib, err)}")
+        out.append(dict(zip(keys, vals)))
     return out

@@ -390,6 +390,12 @@ def _assert_conv_close(ref, got, b):
     (35, 70, (24,), 3, 1, False, (False,)),       # out: 3 channels, no ReLU
     (20, 33, (28,), 28, 1, True, (False,)),       # widths of weights/denoiser.msgpack
     (16, 32, (8, 16, 8), 12, 1, False, (False, False, False)),  # three groups
+    (24, 40, (44,), 96, 1, True, (False,)),       # conv3x3_same's 44 -> 96: plain loads
+    (3, 5, (24,), 24, 1, True, (False,)),         # image smaller than one tile
+    (1, 37, (48,), 48, 1, True, (False,)),        # one row high
+    (37, 53, (24,), 48, 2, True, (False,)),       # stride 2, odd size, ragged tiles
+    (18, 22, (48, 24), 24, 2, True, (True, False)),  # stride 2 over an upsampled group
+    (20, 24, (16,), 136, 1, True, (False,)),      # Cout > 96: 96-channel slices
 ])
 def test_conv_kernel_matches_plain(cuda, h, w, cins, cout, stride, relu, ups):
     xs, ks, b = _conv_case(cuda, h * w, h, w, cins, cout, ups)
@@ -401,6 +407,40 @@ def test_conv_kernel_matches_plain(cuda, h, w, cins, cout, stride, relu, ups):
     assert cc.LAUNCHES == 1
     assert got.dtype == BF and got.is_contiguous()
     _assert_conv_close(ref, got, b)
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_conv_kernel_at_unaligned_storage(cuda, offset):
+    """Contiguous inputs and kernels at a storage offset of ``offset`` bf16
+    values (2 or 8 bytes): no 16-byte copies, plain loads."""
+    h, w, cins, cout = 21, 35, (48, 24), 48
+    xs, ks, b = _conv_case(cuda, 7, h, w, cins, cout, (False, False))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        s = buf[offset:].view(t.shape)
+        s.copy_(t)
+        assert s.is_contiguous() and s.data_ptr() % 16 != 0
+        return s
+
+    xs_u, ks_u = [shifted(x) for x in xs], [shifted(k) for k in ks]
+    got = cc.conv3x3(xs_u, ks_u, b, 1, True, (False, False))
+    torch.cuda.synchronize()
+    assert torch.equal(got, cc.conv3x3(xs, ks, b, 1, True, (False, False)))
+    _assert_conv_close(cc.conv3x3_plain(xs, ks, b, 1, True, (False, False)), got, b)
+
+
+def test_conv_kernel_instances(cuda):
+    """Every instantiation built, with its tile.  The two held to three
+    blocks per SM (NP 48 and 96 at stride 1, within 168 registers) may keep
+    a register or two in local memory; the others none."""
+    inst = cc.kernel_instances()
+    assert sorted({(i["np"], i["stride"]) for i in inst}) == [
+        (n, s) for n in (8, 24, 32, 48, 96) for s in (1, 2)]
+    for i in inst:
+        bounded = i["stride"] == 1 and i["np"] in (48, 96)
+        assert i["tile_cols"] == 16 and 0 < i["registers"] <= (168 if bounded else 255)
+        assert i["local_bytes"] <= (16 if bounded else 0)
 
 
 def test_conv3x3_same_entry(cuda):
