@@ -23,6 +23,14 @@ paths through the public entry points, checking the images:
   rays per pixel, the chunk-lists-only kind, and the lady_bug-class scene
   at 8 rays per pixel (two wedges, where no ray leaves its list early).
 
+After the build, [trace_kernel:*] prints each instantiation of the trace
+kernel as built: registers, local (spilled) bytes and shared memory per
+thread block, and blocks per SM.  [bound], [denoised_trace_bound] and
+[dense_bound] give each path's trace launch its least time on the card from
+the run's own counts; [dense_stats] also the share of the warps' list slots
+that did work (warp_slot_efficiency: a warp walks as long as its longest
+walk).
+
 Each phase prints one line; any failure raises (exit code != 0).  The line
 before the last is a JSON object with each kernel's numbers; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -181,6 +189,41 @@ def shaded_rays(scene, cam, cfg, tables):
         clean += same.sum()
         graze += (hb & ~same).sum()
     return int(clean), int(graze)
+
+
+def record_bytes(scene):
+    """Bytes of the scene's records, the kernel's only scene input."""
+    return (scene.walk_records.numel() + scene.shade_records.numel()) * 4
+
+
+def list_bound(label, scene, cam, cfg, tables, trace_ms):
+    """[bound]-style line of a frame 0 launch over slot-mode lists (the
+    denoiser-off and denoised frames), from this run's data: every ray of a
+    cell tests each of its list's slots, ray counts from the cells that are
+    not empty, clean hits and grazes counted by the plain version; operations
+    at the unfused FP32 rate (OPS_* above), bytes: records, lists and
+    output once.  Returns (ops_ms, bytes_ms)."""
+    w, rpp = scene.width, cfg.rays_per_pixel
+    n_px = w * scene.height
+    counts = tables.counts
+    rays_per_cell = trace_cuda._grid_geom(scene, cfg, w, n_px)[1] * (rpp // counts.shape[1])
+    pairs = float(counts.double().sum()) * rays_per_cell
+    live_rays = float((counts > 0).double().sum()) * rays_per_cell
+    clean, grazes = shaded_rays(scene, cam, cfg, tables)
+    ops = OPS_PER_PAIR * pairs + OPS_PER_RAY * live_rays + OPS_PER_HIT * clean + OPS_PER_GRAZE * grazes
+    table_bytes = tables.ids.numel() * 4 + counts.numel() * 4
+    n_bytes = record_bytes(scene) + table_bytes + 5 * n_px * 4
+    ops_ms, bytes_ms = ops / PEAK_FP32_UNFUSED_PER_S * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    phase(label, rays=n_px * rpp, wedges=counts.shape[1], pairs=f"{pairs:.4e}",
+          live_rays=f"{live_rays:.4e}", clean_hits=clean,
+          grazes=grazes, fp32_ops=f"{ops:.4e}", walk_ops=f"{OPS_PER_PAIR * pairs:.4e}",
+          raygen_ops=f"{OPS_PER_RAY * live_rays:.4e}",
+          shade_ops=f"{OPS_PER_HIT * clean + OPS_PER_GRAZE * grazes:.4e}",
+          bytes=n_bytes, ops_ms=f"{ops_ms:.4f}", bytes_ms=f"{bytes_ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}", kernel_ms=f"{trace_ms:.3f}",
+          share_of_bound=f"{bound_ms / trace_ms:.4f}")
+    return ops_ms, bytes_ms
 
 
 def unet_layers(h, w, base=24, cin0=11):
@@ -667,6 +710,9 @@ def denoise_phases(smi):
           **{f"{r['name']}_ms": f"{r['library_ms']:.3f}" for r in rows})
     phase("denoise_breakdown:plain", total_ms=f"{sum(r['plain_ms'] for r in rows):.1f}",
           **{f"{r['name']}_ms": f"{r['plain_ms']:.1f}" for r in rows})
+    # the trace launch timed above: the camera after the zoom step, frame 0
+    t_ops_ms, t_bytes_ms = list_bound("denoised_trace_bound", dscene, cam, cfg,
+                                      trace_cuda.narrow_cand_tables(tables, gl), trace_ms)
 
     entry.update(launches=learned["conv_launches"],
                  launches_per_frame=learned["conv_launches"] // DN_FRAMES,
@@ -680,7 +726,9 @@ def denoise_phases(smi):
     trace_entry = dict(denoised_launches=learned["trace_launches"],
                        denoised_max_abs_err=trace_rest["max_abs_err"],
                        denoised_zoom_max_abs_err=trace_zoom["max_abs_err"],
-                       denoised_ms=trace_ms, denoised_plain_ms=trace_rest["plain_ms"])
+                       denoised_ms=trace_ms, denoised_plain_ms=trace_rest["plain_ms"],
+                       denoised_bound_ms=max(t_ops_ms, t_bytes_ms),
+                       denoised_bound_by="operations" if t_ops_ms >= t_bytes_ms else "bytes")
     return entry, trace_entry
 
 
@@ -789,8 +837,13 @@ def dense_stats(label, dscene, cfg, cam, tables, trace_ms, need_fallback):
     require(st["clean_hits"] + st["grazes"] > 0.5 * rays, f"{label}: most rays hit something")
     pairs = st["list_slots"] + st["chunk_pairs"]
     cells = tables.counts.numel()
+    require(st["list_slots"] <= st["warp_slots"] <= 32 * st["list_slots"],
+            f"{label}: warp slots {st['warp_slots']} against list slots {st['list_slots']}")
+    warp_eff = st["list_slots"] / max(st["warp_slots"], 1)
     phase(f"dense_stats:{label}", rays=rays, live_rays=live,
           slots_per_ray=f"{st['list_slots'] / live:.2f}",
+          warp_slots_per_ray=f"{st['warp_slots'] / live:.2f}",
+          warp_slot_efficiency=f"{warp_eff:.4f}",
           fallback_share=f"{st['fallback_rays'] / live:.5f}",
           chunks_per_fallback_ray=f"{st['chunks'] / max(st['fallback_rays'], 1):.2f}",
           pairs_per_ray=f"{pairs / live:.2f}", pairs=f"{pairs:.4e}",
@@ -800,8 +853,7 @@ def dense_stats(label, dscene, cfg, cam, tables, trace_ms, need_fallback):
     ops = (OPS_PER_PAIR * pairs + OPS_PER_RAY * live + OPS_PER_HIT * st["clean_hits"]
            + OPS_PER_GRAZE * st["grazes"])
     table_read = cells * (8 * st["list_slots"] / live + 8 * st["chunks"] / live + 12)
-    n_bytes = ((dscene.seg_consts.numel() + dscene.shade_all_t.numel()) * 4 + table_read
-               + 5 * n_px * 4)
+    n_bytes = record_bytes(dscene) + table_read + 5 * n_px * 4
     ops_ms, bytes_ms = ops / PEAK_FP32_UNFUSED_PER_S * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     phase(f"dense_bound:{label}", fp32_ops=f"{ops:.4e}", walk_ops=f"{OPS_PER_PAIR * pairs:.4e}",
@@ -812,7 +864,8 @@ def dense_stats(label, dscene, cfg, cam, tables, trace_ms, need_fallback):
           share_of_bound=f"{bound_ms / trace_ms:.4f}",
           pairs_per_s=f"{pairs / (trace_ms * 1e-3):.4e}")
     return dict(bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                slots_per_ray=st["list_slots"] / live, fallback_share=st["fallback_rays"] / live)
+                slots_per_ray=st["list_slots"] / live, fallback_share=st["fallback_rays"] / live,
+                warp_slot_efficiency=warp_eff)
 
 
 def dense_few_wedges(dscene, cam):
@@ -961,11 +1014,13 @@ def dense_phases():
         dense_plain_band_ms=rest["plain_ms"], dense_plain_band_rays=band_rays,
         dense_bound_ms=lb_stats["bound_ms"], dense_bound_by=lb_stats["bound_by"],
         dense_slots_per_ray=lb_stats["slots_per_ray"],
+        dense_warp_slot_efficiency=lb_stats["warp_slot_efficiency"],
         dense_fallback_share=lb_stats["fallback_share"],
         dense_full_sweep_ms=sweep_ms, dense_table_build_s=build_s,
         dense_dolphin_ms=dol_ms, dense_dolphin_max_abs_err=dol_par["max_abs_err"],
         dense_dolphin_bound_ms=dol_stats["bound_ms"],
         dense_dolphin_slots_per_ray=dol_stats["slots_per_ray"],
+        dense_dolphin_warp_slot_efficiency=dol_stats["warp_slot_efficiency"],
         dense_dolphin_table_build_s=dol_build_s,
         dense_chunk_kind_ms=c_ms, dense_chunk_kind_max_abs_err=c_err,
         dense_few_wedges_ms=few["ms"], dense_few_wedges_full_sweep_ms=few["sweep_ms"],
@@ -991,6 +1046,12 @@ def main():
         for line in log["output"].splitlines():
             if "registers" in line or "spill" in line:
                 phase(f"ptxas:{name}", info=line.strip())
+    trace_info = trace_cuda.trace_kernel_info()
+    for i in trace_info:
+        phase(f"trace_kernel:{i['name']}", registers=i["registers"], local_bytes=i["local_bytes"],
+              static_smem_bytes=i["static_smem_bytes"],
+              dynamic_smem_bytes=i["dynamic_smem_bytes"], blocks_per_sm=i["blocks_per_sm"],
+              block_threads=i["block_threads"])
 
     # --- setup: config #2 at 1024^2 x 128 rpp on the seeded scene ---
     t0 = time.perf_counter()
@@ -1100,20 +1161,8 @@ def main():
           lists_eq_full="bitwise", plain_ms=f"{plain_ms:.1f}")
 
     # --- bound: this run's data-dependent work ---
-    rays_per_cell = (trace_cuda._grid_geom(dscene, cfg, SIZE, n_px)[1]) * (RPP // counts.shape[1])
-    pairs = float(counts.double().sum()) * rays_per_cell
-    live_rays = float((counts > 0).double().sum()) * rays_per_cell
-    clean, grazes = shaded_rays(dscene, cam, cfg, tables)
-    ops = OPS_PER_PAIR * pairs + OPS_PER_RAY * live_rays + OPS_PER_HIT * clean + OPS_PER_GRAZE * grazes
-    n_bytes = (dscene.seg_consts.numel() + dscene.shade_all_t.numel()) * 4 + table_bytes + 5 * n_px * 4
-    ops_ms, bytes_ms = ops / PEAK_FP32_UNFUSED_PER_S * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = list_bound("bound", dscene, cam, cfg, tables, trace_ms)
     bound_ms = max(ops_ms, bytes_ms)
-    phase("bound", pairs=f"{pairs:.4e}", live_rays=f"{live_rays:.4e}", clean_hits=clean,
-          grazes=grazes, fp32_ops=f"{ops:.4e}", walk_ops=f"{OPS_PER_PAIR * pairs:.4e}",
-          raygen_ops=f"{OPS_PER_RAY * live_rays:.4e}",
-          shade_ops=f"{OPS_PER_HIT * clean + OPS_PER_GRAZE * grazes:.4e}",
-          bytes=n_bytes, ops_ms=f"{ops_ms:.4f}", bytes_ms=f"{bytes_ms:.4f}",
-          share_of_bound=f"{bound_ms / trace_ms:.4f}")
 
     conv_entry, denoised_trace = denoise_phases(smi)
     dense_trace = dense_phases()
@@ -1136,6 +1185,7 @@ def main():
         "portal_max_abs_err": perr,
         "frame_ms": frame_ms,
         "build_s": build_s,
+        "instantiations": trace_info,
         "card": smi,
     } | denoised_trace | dense_trace, conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,15 +13,30 @@
 // built with --fmad=false, every multiply and add rounds alone as there.
 //
 // Design: one thread per pixel.  A CUDA block covers BLOCK pixels of
-// one TILE_W-wide pixel tile, so every thread of a block shares the tile's
-// per-wedge candidate lists and walks them in lockstep (the list entries are
-// broadcast loads).  A thread loops over the wedges of its fan; a wedge whose
-// list is empty contributes exactly zero and is skipped.  Portal
-// continuation rays always walk every segment: lists cover primary rays only.
-// The sums stay in registers and are written once per pixel, no atomics, so
-// the output is deterministic.  The intersection constants and the shade
-// table are staged in shared memory when they fit (72 floats per segment,
-// s_pad <= 170), else read through the read-only cache and L2.
+// one TILE_W-wide pixel tile, so the 32 lanes of a warp trace rays of the
+// same (tile, wedge) cell at the same time and walk the same list.  A thread
+// loops over the wedges of its fan; a wedge whose list is empty contributes
+// exactly zero and is skipped.  Portal continuation rays always walk every
+// segment: lists cover primary rays only.  Each thread adds its pixel's
+// sums in its own shared-memory slots and writes them once, no atomics, so
+// the output is deterministic.
+//
+// Operands.  Every walk (a cell's list, the sorted chunk walk, the full
+// sweep, portal bounces) is cut into pieces of 32 slots.  The warp stages a
+// piece in its own shared memory: lane l loads slot l's segment id (and, in
+// distance order, its lower bound) and copies that segment's 32-byte walk
+// record (scene/device.py::walk_records: ex, ey, c1, p0x, p0y, band, quad,
+// id) with two 16-byte cp.async.  The next piece is in flight while the warp
+// walks the current one; the per-slot loop reads a record with two broadcast
+// 16-byte shared loads (and one for the bound), with no global load and no
+// dependent chain.  Staging is warp-local (cp.async.wait_all, __syncwarp),
+// never a block barrier, so lanes of one warp stay in lockstep where they
+// must (staging, votes) and diverge where the walk does (per-ray exits).  A
+// winner is shaded from its 256-byte shade record (the column of
+// shade_all_t, scene/device.py::shade_records) with 16-byte loads through
+// L1.  Every scene size takes this one data path.  (Keeping a cell's first
+// pieces staged for the sw samples of its wedge did not pay: the pieces
+// hit L1, and the larger footprint cost L1 and occupancy; PERF.md.)
 //
 // Three walks of the primary rays, one kernel instantiation per family:
 //  * id order (trace_kernel<false, false>): lists hold global segment ids in
@@ -45,7 +60,8 @@
 //    the same rule.  Every segment left out has lb >= the threshold, so it
 //    cannot win.  A walk in distance order meets ids in any order, and a
 //    chunk may hold a segment the list already tested, so the winner is the
-//    explicit (key, id) minimum: smaller key, then smaller id.
+//    explicit (key, id) minimum: smaller key, then smaller id.  The warp
+//    fetches a further piece while any lane still walks.
 //  * chunk lists only (no segment lists): the chunk walk from an empty
 //    state.
 // The counting instantiation (trace_kernel<true, true>) also adds per-pixel
@@ -67,14 +83,26 @@
 // key), raygen ~38, Newton refinement + shading of a hit ~177 and root
 // isolation of a graze ~448; with --fmad=false each is an instruction of its
 // own, at half the FMA-counted FP32 peak.  The bytes are the lists (T*W*L
-// int32), the tables (72 floats per segment) and 20 bytes of output per
-// pixel, two orders of magnitude below the operation time.  What
-// the design does about it: the per-cell lists cut the pairs walked from
-// n_sub to the cell's count (mean ~7 of 128 on the main-path scene), empty
-// cells skip the whole fan, and the walk reads its operands from shared
-// memory.  Dense scenes do not fit shared memory; their per-ray exit cuts
-// the pairs from the list length to the slots nearer than the ray's hit.
-// chip_smoke.py computes the bound from the run's own counts.
+// int32), the records (96 floats per segment) and 20 bytes of output per
+// pixel, two orders of magnitude below the operation time.  What holds the
+// kernel below that bound is issue slots spent on anything but those
+// operations: loads (loads and FP32 share the SM's four warp instructions a
+// clock), waits on dependent loads, lanes idle while the slowest lane of
+// their warp walks on (counted by the warp_slots counter), and occupancy
+// (registers).  What the design does about it: the per-cell lists cut the
+// pairs walked from n_sub to the cell's count, empty cells skip the whole
+// fan, the distance-ordered walk's per-ray exit cuts a dense list to the
+// slots nearer than the ray's hit, a pair costs two shared loads and no
+// global one, and its exit test one compare (the threshold is
+// recomputed only when the strict best moves), the staging of the next
+// piece overlaps the walk of the current one, and no block stages whole
+// tables, so registers alone set residency.  Registers: the pixel's
+// sums and a ray's portal chain live in shared memory and a walk's list is
+// an offset, so the launch bounds hold 8 blocks (id order) or 7 (distance
+// order) of 128 threads per SM, 64 or 72 registers, with ptxas's spills in
+// shading and none in the walks.  chip_smoke.py computes the bound from the
+// run's own counts and prints registers and blocks per SM
+// ([trace_kernel:*], from rtdc_trace_info).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,22 +111,23 @@ namespace {
 
 #define F32(x) ((float)(x))
 
-// shade_all_t rows and seg_consts columns (scene/device.py).
-constexpr int COL_CL0 = 4, COL_CL1 = 7, COL_CR0 = 10, COL_CR1 = 13;
-constexpr int COL_BLUR0 = 16, COL_BLUR1 = 17, COL_WM0 = 18, COL_WM1 = 19;
-constexpr int COL_WD0 = 20, COL_WD1 = 21, COL_PORTAL = 22;
-constexpr int CONST_EX = 0, CONST_EY = 1, CONST_C1 = 2, CONST_P0X = 3,
-              CONST_P0Y = 4, CONST_BAND = 6, CONST_QUAD = 7, CONST_COLS = 9;
-constexpr int ALLT_SRC_CTRL = 37, ALLT_TGT_CTRL = 45, ALLT_T0 = 53,
-              ALLT_DT = 54, ALLT_BAND = 55, ALLT_ROWS = 64;
+// Rows of shade_all_t (= columns of a shade record, scene/device.py).
+constexpr int ALLT_ROWS = 64;
 constexpr int TILE_W = 16;
-constexpr int STAGE_COLS = 8;  // seg_consts columns 0..7 staged
-constexpr int SMEM_LIMIT = 48 * 1024;
 constexpr int BLOCK = 128;  // threads (pixels of one tile) per CUDA block
+// Blocks per SM the registers must allow, per instantiation (measured:
+// PERF.md; ptxas keeps the walk loops in registers and spills in shading).
+constexpr int MIN_BLOCKS_ID = 8;
+constexpr int MIN_BLOCKS_DIST = 7;
+constexpr int WARP = 32;
+constexpr int WARPS = BLOCK / WARP;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NBUF = 2;  // piece buffers per warp, taking turns
 constexpr int SEG_CHUNK = 64;  // segments per chunk of the chunk lists
 // Per-pixel counters of the counting instantiation (trace_cuda.STAT_NAMES).
 constexpr int STAT_RAYS = 0, STAT_SLOTS = 1, STAT_FALLBACK = 2, STAT_CHUNKS = 3,
-              STAT_CHUNK_PAIRS = 4, STAT_CLEAN = 5, STAT_GRAZE = 6, N_STATS = 7;
+              STAT_CHUNK_PAIRS = 4, STAT_CLEAN = 5, STAT_GRAZE = 6, STAT_WARP_SLOTS = 7,
+              N_STATS = 8;
 
 // refine.py constants
 constexpr int BISECT_ITERS = 5;
@@ -108,8 +137,8 @@ constexpr uint32_t M1 = 0x85EBCA6Bu, M2 = 0xC2B2AE35u, GOLDEN = 0x9E3779B9u,
                    H0 = 0x2F6E2B1u;
 
 struct Params {
-  const float* seg_consts;  // (s_pad, CONST_COLS)
-  const float* shade;       // (ALLT_ROWS, s_pad)
+  const float4* walk;       // (s_pad, 8): two float4 walk records per segment
+  const float4* shade;      // (s_pad, ALLT_ROWS): sixteen float4 per segment
   const int* cand_ids;      // (T, W, cand_len) or null
   const int* cand_counts;   // (T, W) or null
   const float* cand_lbs;    // (T, W, cand_len) or null: distance order
@@ -120,29 +149,94 @@ struct Params {
   const float* circle;      // (4,) scene circle cx, cy, r; key slack (distance order)
   int* stats;               // (N_STATS, n_px) or null
   float* out;               // (5, n_px)
-  int s_pad, n_sub, cand_len, chunk_slots, n_px;
+  int n_sub, cand_len, chunk_slots, n_px;
   int width, height, px_start, tiles_x, tile_h, pxb, n_rows;
   int rpp, sw, n_wedges;
   float zoom, off_x, off_y;
   uint32_t frame, seed;
   int use_aa, save, exact, n_traces;
   float min_hit, sector;
-  int staged;
 };
 
-// Scene tables, in shared or global memory: consts(j, c), shade(r, j).
-struct Tables {
-  const float* cst;
-  int col_stride, row_stride;
-  const float* shd;
-  int s_pad;
-  __device__ __forceinline__ float c(int j, int col) const {
-    return cst[col * col_stride + j * row_stride];
-  }
-  __device__ __forceinline__ float s(int row, int j) const {
-    return shd[row * s_pad + j];
-  }
+// One sub-segment's walk record: the seg_consts columns consider() reads.
+struct Rec {
+  float ex, ey, c1, p0x, p0y, band, quad;
+  int id;
 };
+
+__device__ __forceinline__ Rec unpack(float4 a, float4 b) {
+  return Rec{a.x, a.y, a.z, a.w, b.x, b.y, b.z, __float_as_int(b.w)};
+}
+
+// -------------------------------------------------------------- staging
+// A piece: the walk records of 32 consecutive slots of a walk and, in
+// distance order, their lower bounds, in one warp's shared memory.
+struct Piece {
+  float4 rec[WARP][2];
+  float lb[WARP];
+};
+
+// The n slots of one walk: with list >= 0, slot s holds segment
+// cand_ids[list + s] (with its bound cand_lbs[list + s] where the tables
+// have bounds); else segment base + s.  Offsets, not pointers: fewer
+// registers live through the walk.
+struct Span {
+  int list, base, n;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This lane's copies landed; with __syncwarp after it, every lane's.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start the copy of piece q of the walk into buffer q % NBUF of the warp's
+// ``buf``: lane l fetches slot 32 q + l.
+__device__ __forceinline__ void stage(const Params& P, Piece* buf, const Span& sp, int q,
+                                      int lane) {
+  Piece* b = buf + q % NBUF;
+  const int s = q * WARP + lane;
+  if (s < sp.n) {
+    const int j = sp.list >= 0 ? __ldg(P.cand_ids + sp.list + s) : sp.base + s;
+    const float4* src = P.walk + 2 * (size_t)j;
+    cp_async16(&b->rec[lane][0], src);
+    cp_async16(&b->rec[lane][1], src + 1);
+    if (sp.list >= 0 && P.cand_lbs) cp_async4(&b->lb[lane], P.cand_lbs + sp.list + s);
+  }
+  cp_async_commit();
+}
+
+// Piece p of the walk, landed for every lane; piece p + 1 set in flight.
+// Called by all lanes of the warp at once (warp-uniform p); the buffer of
+// p + 1 is free because every lane has passed this __syncwarp after walking
+// p - 1.
+__device__ __forceinline__ const Piece* acquire(const Params& P, Piece* buf, const Span& sp,
+                                                int p, int n_pieces, int lane) {
+  if (p == 0) stage(P, buf, sp, 0, lane);
+  cp_async_wait_all();
+  __syncwarp();
+  if (p + 1 < n_pieces) stage(P, buf, sp, p + 1, lane);
+  return buf + p % NBUF;
+}
+
+// End of a walk: nothing in flight, every lane done reading its buffers.
+__device__ __forceinline__ void release() {
+  cp_async_wait_all();
+  __syncwarp();
+}
 
 // ---------------------------------------------------------------- rng.py
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -349,43 +443,52 @@ struct Shaded {
   float eox, eoy, edx, edy;
 };
 
-// Chord intersection of ray (o, d) with sub-segment j: denom, num_t, num_s
-// exactly as intersect_consts (cross = oy*dx - ox*dy, hoisted per ray).
+// One ray: origin, direction, the hoisted cross term oy*dx - ox*dy and the
+// band scale |d| (0 without exact silhouettes).
+struct Ray {
+  float ox, oy, dx, dy, cross, band_scale;
+};
+
+// Chord intersection of ray (o, d) with a sub-segment: denom, num_t, num_s
+// exactly as intersect_consts.
 struct Pair {
   float denom, num_t, num_s;
 };
 
-__device__ __forceinline__ Pair pair_at(const Tables& T, int j, float ox, float oy, float dx,
-                                        float dy, float cross) {
-  float ex = T.c(j, CONST_EX), ey = T.c(j, CONST_EY);
+__device__ __forceinline__ Pair pair_at(const Rec& g, const Ray& r) {
   Pair p;
-  p.denom = dx * ey - dy * ex;
-  p.num_t = T.c(j, CONST_C1) - ox * ey + oy * ex;
-  p.num_s = dy * T.c(j, CONST_P0X) - dx * T.c(j, CONST_P0Y) + cross;
+  p.denom = r.dx * g.ey - r.dy * g.ex;
+  p.num_t = g.c1 - r.ox * g.ey + r.oy * g.ex;
+  p.num_s = r.dy * g.p0x - r.dx * g.p0y + r.cross;
   return p;
 }
 
-// shade() of ops/intersect.py for one ray and winner j.
-__device__ Shaded shade(const Tables& T, const Params& P, int j, float ox, float oy, float dx,
-                        float dy, float cross, bool exact_refine, bool need_exit) {
-  Pair pr = pair_at(T, j, ox, oy, dx, dy, cross);
+// shade() of ops/intersect.py for one ray and winner j.  The winner's shade
+// record is its column of shade_all_t: float4 k holds rows 4k..4k+3 (rows
+// 4-15 the left and right colours at both ends, 16-22 blur, weight, weight
+// degree at both ends and the portal flag, 37-44 the source control points
+// x0, y0 .. x3, y3, 45-52 the portal target's, 53-55 t0, dt, band).
+__device__ Shaded shade(const Params& P, int j, const Ray& ray, bool exact_refine,
+                        bool need_exit) {
+  const float4* W = P.walk + 2 * (size_t)j;
+  const Rec g = unpack(__ldg(W), __ldg(W + 1));
+  const float4* R = P.shade + (size_t)j * (ALLT_ROWS / 4);
+  const float ox = ray.ox, oy = ray.oy, dx = ray.dx, dy = ray.dy;
+  Pair pr = pair_at(g, ray);
   float inv = pr.denom == 0.0f ? 0.0f : 1.0f / pr.denom;
   float t_chord = pr.num_t * inv;
   float s = clamp01(pr.num_s * inv);
 
-  float t0 = T.s(ALLT_T0, j), dt = T.s(ALLT_DT, j);
-  float cx[4], cy[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    cx[i] = T.s(ALLT_SRC_CTRL + 2 * i, j);
-    cy[i] = T.s(ALLT_SRC_CTRL + 2 * i + 1, j);
-  }
+  const float4 r36 = __ldg(R + 9), r40 = __ldg(R + 10), r44 = __ldg(R + 11),
+               r52 = __ldg(R + 13);
+  float t0 = r52.y, dt = r52.z;
+  float cx[4] = {r36.y, r36.w, r40.y, r40.w};
+  float cy[4] = {r36.z, r40.x, r40.z, r44.x};
   float tau, t_ref, dbx, dby;
   bool hit = true;
   if (exact_refine) {
-    float gex = T.c(j, CONST_EX), gey = T.c(j, CONST_EY);
-    float band = T.s(ALLT_BAND, j);
-    float chord = sqrtf(gex * gex + gey * gey);
+    float band = r52.w;
+    float chord = sqrtf(g.ex * g.ex + g.ey * g.ey);
     float margin = clamp01(F32(0.25) * band * dt / fmaxf(chord, F32(1e-9)));
     bool conv = refine_hit_exact(cx, cy, t0 + s * dt, t0, dt, ox, oy, dx, dy, t_chord,
                                  P.min_hit, margin, &tau, &t_ref, &dbx, &dby);
@@ -404,22 +507,20 @@ __device__ Shaded shade(const Tables& T, const Params& P, int j, float ox, float
   float nx = dby, ny = -dbx;
   float ndotd = nx * dx + ny * dy;
   bool is_right = (ndotd <= 0.0f) != (P.save != 0);
-  int c0 = is_right ? COL_CR0 : COL_CL0;
-  int c1 = is_right ? COL_CR1 : COL_CL1;
+  // rows 4-6 / 7-9: left colour at the ends; 10-12 / 13-15: right colour
+  const float4 r4 = __ldg(R + 1), r8 = __ldg(R + 2), r12 = __ldg(R + 3);
   float a;
-  a = T.s(c0, j);
-  h.r = a + (T.s(c1, j) - a) * sf;
-  a = T.s(c0 + 1, j);
-  h.g = a + (T.s(c1 + 1, j) - a) * sf;
-  a = T.s(c0 + 2, j);
-  h.b = a + (T.s(c1 + 2, j) - a) * sf;
-  a = T.s(COL_BLUR0, j);
-  h.blur = a + (T.s(COL_BLUR1, j) - a) * sf;
-  a = T.s(COL_WM0, j);
-  h.wm = a + (T.s(COL_WM1, j) - a) * sf;
-  a = T.s(COL_WD0, j);
-  h.wd = a + (T.s(COL_WD1, j) - a) * sf;
-  h.portal = need_exit && T.s(COL_PORTAL, j) > 0.0f;
+  a = is_right ? r8.z : r4.x;
+  h.r = a + ((is_right ? r12.y : r4.w) - a) * sf;
+  a = is_right ? r8.w : r4.y;
+  h.g = a + ((is_right ? r12.z : r8.x) - a) * sf;
+  a = is_right ? r12.x : r4.z;
+  h.b = a + ((is_right ? r12.w : r8.y) - a) * sf;
+  const float4 r16 = __ldg(R + 4), r20 = __ldg(R + 5);
+  h.blur = r16.x + (r16.y - r16.x) * sf;
+  h.wm = r16.z + (r16.w - r16.z) * sf;
+  h.wd = r20.x + (r20.y - r20.x) * sf;
+  h.portal = need_exit && r20.z > 0.0f;
   if (h.portal) {
     // Portal exit (DeviceCode.cu:227-257), the reference's sin = nx*dy + ny*dx
     // and unnormalized rotated direction reproduced verbatim.
@@ -427,12 +528,9 @@ __device__ Shaded shade(const Tables& T, const Params& P, int j, float ox, float
     float nxu = nx / nlen, nyu = ny / nlen;
     float ray_cos = nxu * dx + nyu * dy;
     float ray_sin = nxu * dy + nyu * dx;
-    float tcx[4], tcy[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      tcx[i] = T.s(ALLT_TGT_CTRL + 2 * i, j);
-      tcy[i] = T.s(ALLT_TGT_CTRL + 2 * i + 1, j);
-    }
+    const float4 r48 = __ldg(R + 12);
+    float tcx[4] = {r44.y, r44.w, r48.y, r48.w};
+    float tcy[4] = {r44.z, r48.x, r48.z, r52.x};
     Bez e = bezier_and_derivative(tcx, tcy, tau);
     float tnx = e.dby, tny = -e.dbx;
     float tlen = fmaxf(sqrtf(tnx * tnx + tny * tny), F32(1e-30));
@@ -452,29 +550,28 @@ struct Best {
   int wb, ws;
 };
 
-// One (ray, segment) test of closest_hit, for both chains.  A walk in
-// ascending id order keeps the first minimum (TIE false); a walk in
-// distance order takes the explicit tie-break, smaller key, then smaller
-// id (TIE true), so the order in which segments are met, and meeting one
-// twice, cannot change the winner.
+// One (ray, segment) test of closest_hit, for both chains; true when the
+// strict chain's best moved.  A walk in ascending id order keeps the first
+// minimum (TIE false); a walk in distance order takes the explicit
+// tie-break, smaller key, then smaller id (TIE true), so the order in which
+// segments are met, and meeting one twice, cannot change the winner.
 template <bool EXACT, bool TIE>
-__device__ __forceinline__ void consider(const Tables& T, int j, float ox, float oy, float dx,
-                                         float dy, float cross, float band_scale, float min_hit,
-                                         Best& b) {
-  Pair p = pair_at(T, j, ox, oy, dx, dy, cross);
+__device__ __forceinline__ bool consider(const Rec& g, const Ray& r, float min_hit, Best& b) {
+  const int j = g.id;
+  Pair p = pair_at(g, r);
   float prod_s = p.num_s * (p.denom - p.num_s);
   float tcut = (p.num_t - min_hit * p.denom) * p.denom;
   bool sv = (prod_s >= 0.0f) && (tcut > 0.0f);
-  bool bv = false;
+  bool bv = false, strict_moved = false;
   if (EXACT) {
-    float h = T.c(j, CONST_BAND) * band_scale;
+    float h = g.band * r.band_scale;
     float had = h * fabsf(p.denom);
     bv = (prod_s + had + h * h >= 0.0f) && (tcut + had > 0.0f);
   }
   if (sv || bv) {
     float inv = p.denom == 0.0f ? 0.0f : 1.0f / p.denom;
     float s = p.num_s * inv;
-    float t_est = (p.num_t - T.c(j, CONST_QUAD) * s * (1.0f - s)) * inv;
+    float t_est = (p.num_t - g.quad * s * (1.0f - s)) * inv;
     float key = fmaxf(t_est, F32(1e-30));
     if (EXACT && bv && (key < b.kb || (TIE && key == b.kb && j < b.wb))) {
       b.kb = key;
@@ -483,61 +580,50 @@ __device__ __forceinline__ void consider(const Tables& T, int j, float ox, float
     if (sv && (key < b.ks || (TIE && key == b.ks && j < b.ws))) {
       b.ks = key;
       b.ws = j;
+      strict_moved = true;
     }
   }
+  return strict_moved;
 }
 
-// closest_hit for both chains over a list (ids) or every segment (ids null):
-// the exact (key, id) minimum, first minimum on ties, ids ascending.
-template <bool EXACT>
-__device__ __forceinline__ void walk(const Tables& T, const int* ids, int n, float ox, float oy,
-                                     float dx, float dy, float cross, float band_scale,
-                                     float min_hit, int* best_b, int* best_s) {
-  const float INF = __int_as_float(0x7f800000);
-  Best b = {INF, INF, -1, -1};
-  for (int k = 0; k < n; ++k)
-    consider<EXACT, false>(T, ids ? __ldg(ids + k) : k, ox, oy, dx, dy, cross, band_scale,
-                           min_hit, b);
-  *best_b = b.wb;
-  *best_s = b.ws;
+// Every slot of a walk in slot order, for the lanes that ``need`` it: a
+// list in id order (ties keep the first minimum) or a run of consecutive
+// segments (the full sweep, a portal bounce, a chunk).  Called by all lanes.
+template <bool EXACT, bool TIE>
+__device__ __forceinline__ void walk_all(const Params& P, Piece* buf, const Span& sp, bool need,
+                                         const Ray& r, Best& b, int lane) {
+  const int n_pieces = (sp.n + WARP - 1) / WARP;
+  for (int p = 0; p < n_pieces; ++p) {
+    const Piece* pc = acquire(P, buf, sp, p, n_pieces, lane);
+    if (need) {
+      const int m = min(WARP, sp.n - p * WARP);
+      for (int i = 0; i < m; ++i)
+        consider<EXACT, TIE>(unpack(pc->rec[i][0], pc->rec[i][1]), r, P.min_hit, b);
+    }
+  }
+  release();
 }
 
 // The per-ray clean rule on the two chains' winners (wb band, ws strict;
 // without exact silhouettes only ws is set).
-__device__ Shaded resolve(const Tables& T, const Params& P, int wb, int ws, float ox, float oy,
-                          float dx, float dy, float cross, bool need_exit) {
+__device__ Shaded resolve(const Params& P, int wb, int ws, const Ray& r, bool need_exit) {
   if (!P.exact) {
     if (ws < 0) {
       Shaded miss;
       miss.hit = false;
       return miss;
     }
-    return shade(T, P, ws, ox, oy, dx, dy, cross, false, need_exit);
+    return shade(P, ws, r, false, need_exit);
   }
   if (wb < 0) {
     Shaded miss;
     miss.hit = false;
     return miss;
   }
-  if (ws >= 0 && wb == ws) return shade(T, P, ws, ox, oy, dx, dy, cross, false, need_exit);
-  Shaded hb = shade(T, P, wb, ox, oy, dx, dy, cross, true, need_exit);
-  if (!hb.hit && ws >= 0) return shade(T, P, ws, ox, oy, dx, dy, cross, false, need_exit);
+  if (ws >= 0 && wb == ws) return shade(P, ws, r, false, need_exit);
+  Shaded hb = shade(P, wb, r, true, need_exit);
+  if (!hb.hit && ws >= 0) return shade(P, ws, r, false, need_exit);
   return hb;
-}
-
-// trace_and_shade: the two winner chains over a list or every segment, in
-// id order, and the clean rule.
-__device__ Shaded trace_and_shade(const Tables& T, const Params& P, const int* ids, int n,
-                                  float ox, float oy, float dx, float dy, bool need_exit) {
-  float cross = oy * dx - ox * dy;
-  int wb = -1, ws = -1;
-  if (!P.exact) {
-    walk<false>(T, ids, n, ox, oy, dx, dy, cross, 0.0f, P.min_hit, &wb, &ws);
-  } else {
-    float band_scale = sqrtf(dx * dx + dy * dy);
-    walk<true>(T, ids, n, ox, oy, dx, dy, cross, band_scale, P.min_hit, &wb, &ws);
-  }
-  return resolve(T, P, wb, ws, ox, oy, dx, dy, cross, need_exit);
 }
 
 // ------------------------------------------------- distance-ordered walks
@@ -547,91 +633,115 @@ __device__ __forceinline__ float walk_threshold(const Best& b, float texit) {
   return fminf(b.ks, texit) * F32(1.00001);
 }
 
-// Primary ray through a cell's distance-ordered tables: the capped list
-// while its lower bounds stay below the threshold, then, if segments were
-// dropped and the horizon is still below it (or there is no list), the
-// sorted chunk list under the same rule.  ``st``: this thread's counters.
+// Primary rays through a cell's distance-ordered tables: the capped list
+// while its lower bounds stay below the ray's threshold, then, if segments
+// were dropped and the horizon is still below it (or there is no list), the
+// sorted chunk list under the same rule.  Called by all lanes; ``need``:
+// this lane traces a ray.  The warp fetches a further piece of the list (a
+// further chunk) while any lane still walks.  ``st``: this lane's counters.
 template <bool EXACT, bool STATS>
-__device__ __forceinline__ void walk_dist(const Tables& T, const Params& P, int cell, float ox,
-                                          float oy, float dx, float dy, float cross,
-                                          float band_scale, int* best_b, int* best_s, int* st) {
-  const float INF = __int_as_float(0x7f800000);
-  Best b = {INF, INF, -1, -1};
+__device__ __forceinline__ void walk_dist(const Params& P, Piece* buf, const Span& list, int cell,
+                                          bool need, const Ray& r, Best& b, int* st, int lane) {
   // Where the ray leaves the scene's enclosing circle: no hit lies beyond
   // (every band-widened sub-segment is inside, the circle is convex), and
   // no key lies further beyond than the largest key slack.  A ray that
   // never enters, or leaves behind its origin, exits at 0.
-  const float pcx = __ldg(P.circle) - ox, pcy = __ldg(P.circle + 1) - oy;
+  const float pcx = __ldg(P.circle) - r.ox, pcy = __ldg(P.circle + 1) - r.oy;
   const float cr = __ldg(P.circle + 2);
-  const float bq = dx * pcx + dy * pcy;
+  const float bq = r.dx * pcx + r.dy * pcy;
   const float disc = bq * bq - (pcx * pcx + pcy * pcy - cr * cr);
   const float texit =
       fmaxf(disc >= 0.0f ? bq + sqrtf(fmaxf(disc, 0.0f)) : 0.0f, 0.0f) * F32(1.00002) +
       __ldg(P.circle + 3);
 
-  bool into_chunks = true;
+  bool into_chunks = need;
   if (P.cand_ids) {
-    const int count = __ldg(P.cand_counts + cell);
-    const int n = min(count, P.cand_len);
-    const int* ids = P.cand_ids + (size_t)cell * P.cand_len;
-    const float* lbs = P.cand_lbs + (size_t)cell * P.cand_len;
-    int k = 0;
-    for (; k < n; ++k) {
-      if (!(__ldg(lbs + k) < walk_threshold(b, texit))) break;
-      consider<EXACT, true>(T, __ldg(ids + k), ox, oy, dx, dy, cross, band_scale, P.min_hit, b);
+    bool walking = need;
+    int slots = 0;
+    float thr = walk_threshold(b, texit);
+    const int n_pieces = (list.n + WARP - 1) / WARP;
+    for (int p = 0; p < n_pieces; ++p) {
+      if (!__any_sync(FULL, walking)) break;
+      const Piece* pc = acquire(P, buf, list, p, n_pieces, lane);
+      if (walking) {
+        const int m = min(WARP, list.n - p * WARP);
+        for (int i = 0; i < m; ++i) {
+          if (!(pc->lb[i] < thr)) {
+            walking = false;
+            break;
+          }
+          if (consider<EXACT, true>(unpack(pc->rec[i][0], pc->rec[i][1]), r, P.min_hit, b))
+            thr = walk_threshold(b, texit);
+          ++slots;
+        }
+      }
     }
-    if (STATS) st[STAT_SLOTS] += k;
-    into_chunks = P.chunk_ids && count > P.cand_len &&
+    release();
+    if (STATS) {
+      // the warp walks as long as its longest walk: each ray counts that
+      st[STAT_SLOTS] += slots;
+      const int warp_max = __reduce_max_sync(FULL, slots);  // lanes without a ray: 0
+      if (need) st[STAT_WARP_SLOTS] += warp_max;
+    }
+    into_chunks = need && P.chunk_ids && __ldg(P.cand_counts + cell) > P.cand_len &&
                   __ldg(P.cand_horizon + cell) < walk_threshold(b, texit);
   }
-  if (into_chunks) {
+  if (P.chunk_ids && __any_sync(FULL, into_chunks)) {
+    // lane l holds chunk c0 + l's id and bound; the warp walks chunk by chunk
     const int n = __ldg(P.chunk_counts + cell);
     const int* cids = P.chunk_ids + (size_t)cell * P.chunk_slots;
     const float* clbs = P.chunk_lbs + (size_t)cell * P.chunk_slots;
-    int c = 0;
-    for (; c < n; ++c) {
-      if (!(__ldg(clbs + c) < walk_threshold(b, texit))) break;
-      const int j0 = __ldg(cids + c) * SEG_CHUNK;
-      const int j1 = min(j0 + SEG_CHUNK, P.n_sub);
-      for (int j = j0; j < j1; ++j)
-        consider<EXACT, true>(T, j, ox, oy, dx, dy, cross, band_scale, P.min_hit, b);
-      if (STATS) st[STAT_CHUNK_PAIRS] += max(j1 - j0, 0);
+    int chunks = 0, pairs = 0;
+    for (int c0 = 0; c0 < n; c0 += WARP) {
+      if (!__any_sync(FULL, into_chunks)) break;
+      const bool mine = c0 + lane < n;
+      const int my_id = mine ? __ldg(cids + c0 + lane) : 0;
+      const float my_lb = mine ? __ldg(clbs + c0 + lane) : 0.0f;
+      const int cn = min(WARP, n - c0);
+      for (int c = 0; c < cn; ++c) {
+        const int cid = __shfl_sync(FULL, my_id, c);
+        const float clb = __shfl_sync(FULL, my_lb, c);
+        into_chunks = into_chunks && clb < walk_threshold(b, texit);
+        if (!__any_sync(FULL, into_chunks)) break;
+        const int j0 = cid * SEG_CHUNK;
+        const Span chunk = {-1, j0, max(min(j0 + SEG_CHUNK, P.n_sub) - j0, 0)};
+        walk_all<EXACT, true>(P, buf, chunk, into_chunks, r, b, lane);
+        if (STATS && into_chunks) {
+          ++chunks;
+          pairs += chunk.n;
+        }
+      }
     }
     if (STATS) {
-      st[STAT_CHUNKS] += c;
-      st[STAT_FALLBACK] += c > 0;
+      st[STAT_CHUNKS] += chunks;
+      st[STAT_CHUNK_PAIRS] += pairs;
+      st[STAT_FALLBACK] += chunks > 0;
     }
   }
-  *best_b = b.wb;
-  *best_s = b.ws;
 }
 
 template <bool DIST, bool STATS>
-__global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
-  extern __shared__ float smem[];
-  Tables T;
-  if (P.staged) {
-    const int ns = STAGE_COLS * P.s_pad;
-    for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-      int col = i / P.s_pad, j = i - col * P.s_pad;
-      smem[i] = P.seg_consts[j * CONST_COLS + col];
-    }
-    for (int i = threadIdx.x; i < ALLT_ROWS * P.s_pad; i += blockDim.x)
-      smem[ns + i] = P.shade[i];
-    __syncthreads();
-    T = Tables{smem, P.s_pad, 1, smem + ns, P.s_pad};
-  } else {
-    T = Tables{P.seg_consts, 1, CONST_COLS, P.shade, P.s_pad};
-  }
+__global__ void __launch_bounds__(BLOCK, DIST ? MIN_BLOCKS_DIST : MIN_BLOCKS_ID)
+    trace_kernel(const Params P) {
+  __shared__ Piece pieces[WARPS][NBUF];
+  // The pixel's five sums and the portal chain of its current ray (colour
+  // throughput, sum of inverse weights, blur product), per thread: written
+  // at a hit, so they need not stay in registers through the walks.
+  __shared__ float sums[5][BLOCK], chain[5][BLOCK];
+  const int t = threadIdx.x;
+  const int lane = t & (WARP - 1);
+  Piece* const buf = pieces[t / WARP];  // this warp's
 
+  // A lane whose pixel lies outside the band or the tile stays with its
+  // warp (staging and votes need every lane) but traces nothing.
   const int tile = blockIdx.x;
-  const int pin = blockIdx.y * blockDim.x + threadIdx.x;  // pixel within tile
-  if (pin >= P.pxb) return;
+  const int pin = blockIdx.y * BLOCK + threadIdx.x;  // pixel within tile
   const int tile_r = tile / P.tiles_x;
   const int tile_c = tile - tile_r * P.tiles_x;
   const int col = tile_c * TILE_W + (pin & (TILE_W - 1));
   const int row_rel = tile_r * P.tile_h + pin / TILE_W;
-  if (col >= P.width || row_rel >= P.n_rows) return;
+  const bool valid = pin < P.pxb && col < P.width && row_rel < P.n_rows;
+  if (!__any_sync(FULL, valid)) return;
   const int row = P.px_start / P.width + row_rel;
   const uint32_t pixel = (uint32_t)row * (uint32_t)P.width + (uint32_t)col;
 
@@ -639,20 +749,24 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
   const float oy0 = P.save ? (float)((P.height - row) - P.height / 2) * P.zoom + P.off_y
                            : (float)(row - P.height / 2) * P.zoom + P.off_y;
   const bool need_exit = P.n_traces > 1;
+  const Span sweep = {-1, 0, P.n_sub};  // portal bounces; no lists
 
-  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f, acc4 = 0.0f;
-  int st[N_STATS] = {0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) sums[i][t] = 0.0f;
+  int st[N_STATS] = {0, 0, 0, 0, 0, 0, 0, 0};
   for (int w = 0; w < P.n_wedges; ++w) {
-    const int* ids = nullptr;
-    int n0 = P.n_sub;
     const int cell = tile * P.n_wedges + w;
+    Span prim = sweep;  // the primary rays' walk
     if (DIST) {
       // empty cell: no segment (or chunk) passes, every primary ray misses
       if (__ldg((P.cand_ids ? P.cand_counts : P.chunk_counts) + cell) == 0) continue;
+      if (P.cand_ids) {
+        prim = Span{cell * P.cand_len, 0, min(__ldg(P.cand_counts + cell), P.cand_len)};
+      }
     } else if (P.cand_ids) {
-      n0 = min(__ldg(P.cand_counts + cell), P.cand_len);
+      const int n0 = min(__ldg(P.cand_counts + cell), P.cand_len);
       if (n0 == 0) continue;  // empty cell: every primary ray misses
-      ids = P.cand_ids + (size_t)cell * P.cand_len;
+      prim = Span{cell * P.cand_len, 0, n0};
     }
     for (int k = 0; k < P.sw; ++k) {
       const int sample = w * P.sw + k;
@@ -672,46 +786,71 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
       fast_sincos(theta, &dy, &dx);
 
       // --- trace with portal continuation (intersect.trace_full) ---
-      float fr = 1.0f, fg = 1.0f, fb = 1.0f, inv_w = 0.0f, blur_prod = 1.0f;
+      // ``alive``: this lane's ray is still being traced.  Every lane runs
+      // every bounce the warp runs, so the walks stay warp-wide.
+      bool alive = valid;
       for (int bounce = 0; bounce < P.n_traces; ++bounce) {
-        Shaded h;
+        if (!__any_sync(FULL, alive)) break;
+        Ray r;
+        r.ox = ox;
+        r.oy = oy;
+        r.dx = dx;
+        r.dy = dy;
+        r.cross = oy * dx - ox * dy;
+        r.band_scale = P.exact ? sqrtf(dx * dx + dy * dy) : 0.0f;
+        const float INF = __int_as_float(0x7f800000);
+        Best b = {INF, INF, -1, -1};
         if (DIST && bounce == 0) {
-          const float cross = oy * dx - ox * dy;
-          int wb = -1, ws = -1;
           if (P.exact) {
-            walk_dist<true, STATS>(T, P, cell, ox, oy, dx, dy, cross,
-                                   sqrtf(dx * dx + dy * dy), &wb, &ws, st);
+            walk_dist<true, STATS>(P, buf, prim, cell, alive, r, b, st, lane);
           } else {
-            walk_dist<false, STATS>(T, P, cell, ox, oy, dx, dy, cross, 0.0f, &wb, &ws, st);
+            walk_dist<false, STATS>(P, buf, prim, cell, alive, r, b, st, lane);
           }
-          if (STATS) {
+          if (STATS && alive) {
             st[STAT_RAYS] += 1;
-            const bool graze = P.exact && wb >= 0 && wb != ws;
+            const bool graze = P.exact && b.wb >= 0 && b.wb != b.ws;
             st[STAT_GRAZE] += graze;
-            st[STAT_CLEAN] += !graze && ws >= 0;
+            st[STAT_CLEAN] += !graze && b.ws >= 0;
           }
-          h = resolve(T, P, wb, ws, ox, oy, dx, dy, cross, need_exit);
         } else {
-          const int* L = bounce == 0 ? ids : nullptr;
-          const int n = bounce == 0 ? n0 : P.n_sub;
-          h = trace_and_shade(T, P, L, n, ox, oy, dx, dy, need_exit);
+          const Span& sp = bounce == 0 ? prim : sweep;
+          if (P.exact) {
+            walk_all<true, false>(P, buf, sp, alive, r, b, lane);
+          } else {
+            walk_all<false, false>(P, buf, sp, alive, r, b, lane);
+          }
         }
-        if (!h.hit) break;
+        if (!alive) continue;
+        const Shaded h = resolve(P, b.wb, b.ws, r, need_exit);
+        if (!h.hit) {
+          alive = false;
+          continue;
+        }
         float w_self = h.wm * powf(h.t, -h.wd);
+        // the chain so far: the identity before the first portal
+        float fr = 1.0f, fg = 1.0f, fb = 1.0f, inv_w = 0.0f, blur_prod = 1.0f;
+        if (bounce > 0) {
+          fr = chain[0][t];
+          fg = chain[1][t];
+          fb = chain[2][t];
+          inv_w = chain[3][t];
+          blur_prod = chain[4][t];
+        }
         if (!h.portal) {
           float w_final = 1.0f / (inv_w + 1.0f / w_self);
-          acc0 += (fr * h.r) * w_final;
-          acc1 += (fg * h.g) * w_final;
-          acc2 += (fb * h.b) * w_final;
-          acc3 += w_final;
-          acc4 += (blur_prod * h.blur) * w_final;
-          break;
+          sums[0][t] += (fr * h.r) * w_final;
+          sums[1][t] += (fg * h.g) * w_final;
+          sums[2][t] += (fb * h.b) * w_final;
+          sums[3][t] += w_final;
+          sums[4][t] += (blur_prod * h.blur) * w_final;
+          alive = false;
+          continue;
         }
-        fr = fr * h.r;
-        fg = fg * h.g;
-        fb = fb * h.b;
-        inv_w = inv_w + 1.0f / w_self;
-        blur_prod = blur_prod * h.blur;
+        chain[0][t] = fr * h.r;
+        chain[1][t] = fg * h.g;
+        chain[2][t] = fb * h.b;
+        chain[3][t] = inv_w + 1.0f / w_self;
+        chain[4][t] = blur_prod * h.blur;
         ox = h.eox;
         oy = h.eoy;
         dx = h.edx;
@@ -719,25 +858,43 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(const Params P) {
       }
     }
   }
+  if (!valid) return;
   const int p = row_rel * P.width + col;
-  P.out[p] = acc0;
-  P.out[P.n_px + p] = acc1;
-  P.out[2 * P.n_px + p] = acc2;
-  P.out[3 * P.n_px + p] = acc3;
-  P.out[4 * P.n_px + p] = acc4;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) P.out[i * P.n_px + p] = sums[i][t];
   if (STATS) {
 #pragma unroll
     for (int i = 0; i < N_STATS; ++i) P.stats[i * P.n_px + p] += st[i];
   }
 }
 
+// The instantiations, in rtdc_trace_info's order: id order, distance order,
+// distance order with counters.
+constexpr int N_INSTANCES = 3;
+
+template <bool DIST, bool STATS>
+int info(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, trace_kernel<DIST, STATS>);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, trace_kernel<DIST, STATS>, BLOCK,
+                                                      0);
+  if (err != cudaSuccess) return (int)err;
+  const int v[6] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes, 0, blocks, BLOCK};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
 }  // namespace
 
-// Tables (trace_cuda.CandTables): id-ordered lists are cand_ids + cand_counts
-// alone; distance-ordered tables add cand_lbs + cand_horizon and/or the chunk
-// lists, with the scene circle.  ``stats`` (distance order only) selects the
-// counting instantiation.
-extern "C" int rtdc_trace_sums(const float* seg_consts, const float* shade_all_t, int s_pad,
+// Records (scene/device.py): walk_records (s_pad, 8) and shade_records
+// (s_pad, ALLT_ROWS) float32, 16-byte aligned.  Tables
+// (trace_cuda.CandTables): id-ordered lists are cand_ids + cand_counts
+// alone; distance-ordered tables add cand_lbs + cand_horizon and/or the
+// chunk lists, with the scene circle.  ``stats`` (distance order only)
+// selects the counting instantiation.
+extern "C" int rtdc_trace_sums(const float* walk_records, const float* shade_records, int s_pad,
                                int n_sub, const int* cand_ids, const int* cand_counts,
                                int cand_len, const float* cand_lbs, const float* cand_horizon,
                                const int* chunk_ids, const float* chunk_lbs,
@@ -747,7 +904,13 @@ extern "C" int rtdc_trace_sums(const float* seg_consts, const float* shade_all_t
                                int rpp, int sw, int n_wedges, float zoom, float off_x,
                                float off_y, uint32_t frame, uint32_t seed, int use_aa, int save,
                                int exact, int n_traces, float min_hit, void* stream) {
-  if (width <= 0 || rpp <= 0 || sw <= 0 || pxb <= 0) return (int)cudaErrorInvalidValue;
+  if (width <= 0 || rpp <= 0 || sw <= 0 || pxb <= 0 || n_sub < 0 || n_sub > s_pad)
+    return (int)cudaErrorInvalidValue;
+  // list offsets are int (Span)
+  if ((long long)tiles_x * tiles_y * n_wedges * cand_len > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)walk_records | (uintptr_t)shade_records) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   const bool dist = cand_lbs != nullptr || chunk_ids != nullptr;
   if (dist) {
     if (!circle) return (int)cudaErrorInvalidValue;
@@ -757,8 +920,8 @@ extern "C" int rtdc_trace_sums(const float* seg_consts, const float* shade_all_t
     return (int)cudaErrorInvalidValue;
   }
   Params P;
-  P.seg_consts = seg_consts;
-  P.shade = shade_all_t;
+  P.walk = reinterpret_cast<const float4*>(walk_records);
+  P.shade = reinterpret_cast<const float4*>(shade_records);
   P.cand_ids = cand_ids;
   P.cand_counts = cand_counts;
   P.cand_lbs = cand_lbs;
@@ -770,7 +933,6 @@ extern "C" int rtdc_trace_sums(const float* seg_consts, const float* shade_all_t
   P.circle = circle;
   P.stats = stats;
   P.out = out;
-  P.s_pad = s_pad;
   P.n_sub = n_sub;
   P.cand_len = cand_len;
   P.n_px = n_px;
@@ -796,18 +958,26 @@ extern "C" int rtdc_trace_sums(const float* seg_consts, const float* shade_all_t
   P.min_hit = min_hit;
   // 2*pi/rpp in float32, as raygen computes it (float(2*pi) / float(rpp)).
   P.sector = F32(6.283185307179586) / (float)rpp;
-  size_t smem = (size_t)(STAGE_COLS + ALLT_ROWS) * s_pad * sizeof(float);
-  P.staged = smem <= SMEM_LIMIT;
-  if (!P.staged) smem = 0;
-  dim3 grid(tiles_x * tiles_y, (pxb + BLOCK - 1) / BLOCK);
+  const dim3 grid(tiles_x * tiles_y, (pxb + BLOCK - 1) / BLOCK);
+  const cudaStream_t cuda_stream = (cudaStream_t)stream;
   if (!dist) {
-    trace_kernel<false, false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(P);
+    trace_kernel<false, false><<<grid, BLOCK, 0, cuda_stream>>>(P);
   } else if (!stats) {
-    trace_kernel<true, false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(P);
+    trace_kernel<true, false><<<grid, BLOCK, 0, cuda_stream>>>(P);
   } else {
-    trace_kernel<true, true><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(P);
+    trace_kernel<true, true><<<grid, BLOCK, 0, cuda_stream>>>(P);
   }
   return (int)cudaGetLastError();
+}
+
+// What the build made of instantiation i (rtdc_trace_info's order above)
+// into out[6]: registers per thread, local (spilled) bytes per thread,
+// static shared bytes per block, dynamic shared bytes per block (0), blocks
+// per SM at BLOCK threads, BLOCK.  i < 0: the number of instantiations.
+extern "C" int rtdc_trace_info(int i, int* out) {
+  if (i < 0) return N_INSTANCES;
+  if (i >= N_INSTANCES || out == nullptr) return (int)cudaErrorInvalidValue;
+  return i == 0 ? info<false, false>(out) : i == 1 ? info<true, false>(out) : info<true, true>(out);
 }
 
 extern "C" const char* rtdc_error_string(int err) {

@@ -48,7 +48,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 SIGNATURES = {
     "trace": {
         "rtdc_trace_sums": (
-            [_P, _P, _I, _I,  # seg_consts, shade_all_t, s_pad, n_sub
+            [_P, _P, _I, _I,  # walk_records, shade_records, s_pad, n_sub
              _P, _P, _I,  # cand ids, cand counts, cand_len
              _P, _P,  # cand lbs, cand horizon
              _P, _P, _P, _I,  # chunk ids, chunk lbs, chunk counts, chunk_slots
@@ -61,6 +61,7 @@ SIGNATURES = {
              _P],  # stream
             _I,
         ),
+        "rtdc_trace_info": ([_I, _P], _I),  # instantiation, int[6] out
         "rtdc_error_string": ([_I], ctypes.c_char_p),
     },
     "conv3x3": {

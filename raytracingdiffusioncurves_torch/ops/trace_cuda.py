@@ -51,8 +51,10 @@ _PLAIN_CHUNK_PAIRS = (1 << 21, 1 << 25)
 # writes them.
 STAT_NAMES = (
     "live_rays", "list_slots", "fallback_rays", "chunks", "chunk_pairs",
-    "clean_hits", "grazes",
+    "clean_hits", "grazes", "warp_slots",
 )
+# The kernel's instantiations, in rtdc_trace_info's order.
+KERNEL_INSTANCES = ("id_order", "dist_order", "dist_order_stats")
 
 # Launches of the CUDA trace kernel since the last reset (one per
 # trace_sums_flat call on a CUDA tensor).  chip_smoke.py reads it to show
@@ -359,8 +361,10 @@ def trace_walk_stats(
     walked at least one chunk of the chunk lists (the horizon fallback, or
     the whole walk where there are chunk lists only), chunks walked, (ray,
     segment) pairs tested there, rays whose two chains agreed on the
-    winner, rays shaded through root isolation.  For measurement outside
-    any timed window (one host sync); CUDA only."""
+    winner, rays shaded through root isolation, and per ray the list slots
+    of the longest list walk in its warp (the warp walks that long: list
+    slots / warp slots is the share of lane-slots that did work).  For
+    measurement outside any timed window (one host sync); CUDA only."""
     if scene.device.type != "cuda":
         raise RuntimeError("the statistics launch runs only on a CUDA device")
     if cand_tables is None or not cand_tables.dist_ordered:
@@ -525,31 +529,24 @@ def _table_pointers(tables: CandTables | None, n_tiles: int, n_wedges: int):
             chunk_slots, circle_ptr)
 
 
-def _trace_sums_cuda(scene, camera, config, frame, px_start, n_px, cand_tables, stats=None):
-    """Launch csrc/trace.cu on the scene's card; one launch per call.
-    ``stats``: (len(STAT_NAMES), n_px) int32 zeros selects the counting
-    instantiation, which adds its per-pixel counters there."""
-    global LAUNCHES
-    from . import _build  # builds csrc/trace.cu on first use
-
+def launch_args(scene, camera, config, frame, px_start, n_px, cand_tables, out, stats=None):
+    """The arguments of csrc/trace.cu's rtdc_trace_sums after its first two
+    (the scene's records), checked: the scene's sizes, the tables' device
+    pointers, ``stats`` (or None), the (5, n_px) float32 ``out``, the launch
+    geometry, camera and config, and the current stream."""
     w, h = scene.width, scene.height
     _, pxb, sw, n_wedges, tile_h, tiles_x, tiles_y, n_tiles = _grid_geom(
         scene, config, w, n_px
     )
-    s_pad = scene.s_pad
-    _check(scene.seg_consts, "seg_consts", torch.float32, (s_pad, dev.CONST_COLS))
-    _check(scene.shade_all_t, "shade_all_t", torch.float32, (dev.ALLT_ROWS, s_pad))
     table_args = _table_pointers(cand_tables, n_tiles, n_wedges)
     stats_ptr = None
     if stats is not None:
         _check(stats, "stats", torch.int32, (len(STAT_NAMES), n_px))
         stats_ptr = stats.data_ptr()
-    out = torch.empty((5, n_px), dtype=torch.float32, device=scene.device)
-    lib = _build.load("trace")
+    _check(out, "out", torch.float32, (5, n_px))
     stream = torch.cuda.current_stream(scene.device).cuda_stream
-    err = lib.rtdc_trace_sums(
-        scene.seg_consts.data_ptr(), scene.shade_all_t.data_ptr(),
-        s_pad, scene.n_sub,
+    return (
+        scene.s_pad, scene.n_sub,
         *table_args, stats_ptr,
         out.data_ptr(), n_px,
         w, h, px_start, tiles_x, tiles_y, tile_h, pxb,
@@ -560,7 +557,49 @@ def _trace_sums_cuda(scene, camera, config, frame, px_start, n_px, cand_tables, 
         int(config.exact_silhouettes), _n_traces(scene, config),
         float(config.min_hit_distance), ctypes.c_void_p(stream),
     )
+
+
+def _trace_sums_cuda(scene, camera, config, frame, px_start, n_px, cand_tables, stats=None):
+    """Launch csrc/trace.cu on the scene's card; one launch per call.
+    ``stats``: (len(STAT_NAMES), n_px) int32 zeros selects the counting
+    instantiation, which adds its per-pixel counters there."""
+    global LAUNCHES
+    from . import _build  # builds csrc/trace.cu on first use
+
+    s_pad = scene.s_pad
+    _check(scene.walk_records, "walk_records", torch.float32, (s_pad, dev.WALK_COLS))
+    _check(scene.shade_records, "shade_records", torch.float32, (s_pad, dev.ALLT_ROWS))
+    for name in ("walk_records", "shade_records"):
+        if getattr(scene, name).data_ptr() % 16 != 0:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty((5, n_px), dtype=torch.float32, device=scene.device)
+    args = launch_args(scene, camera, config, frame, px_start, n_px, cand_tables, out, stats)
+    lib = _build.load("trace")
+    err = lib.rtdc_trace_sums(scene.walk_records.data_ptr(), scene.shade_records.data_ptr(), *args)
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: {_build.error_string(lib, err)}")
     LAUNCHES += 1
     return out[0:3].T, out[3], out[4]
+
+
+def trace_kernel_info() -> list[dict]:
+    """What the build made of each instantiation of the trace kernel
+    (KERNEL_INSTANCES): registers per thread, local (spilled) bytes per
+    thread, static and dynamic shared memory per block, blocks per SM at
+    the launch's block size, that block size; from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the card."""
+    from . import _build
+
+    lib = _build.load("trace")
+    if lib.rtdc_trace_info(-1, None) != len(KERNEL_INSTANCES):
+        raise RuntimeError("the trace library's instantiations do not match KERNEL_INSTANCES")
+    keys = ("registers", "local_bytes", "static_smem_bytes", "dynamic_smem_bytes",
+            "blocks_per_sm", "block_threads")
+    out = []
+    for i, name in enumerate(KERNEL_INSTANCES):
+        vals = (ctypes.c_int * len(keys))()
+        err = lib.rtdc_trace_info(i, vals)
+        if err != 0:
+            raise RuntimeError(f"trace kernel attributes: {_build.error_string(lib, err)}")
+        out.append({"name": name, **dict(zip(keys, vals))})
+    return out

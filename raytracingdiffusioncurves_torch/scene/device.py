@@ -20,6 +20,14 @@ optixHello.cpp:764-830 + DeviceCode.cu), identical to the JAX package's
   portal exit geometry, refinement control points) is one column of
   ``shade_all_t`` (ALLT_ROWS, S_pad), read by the winner's segment id.
 
+* The CUDA trace kernel reads the same values as packed per-segment
+  records, built once per scene from those two tables (``pack_records``):
+  ``walk_records`` (S_pad, WALK_COLS), the seg_consts columns of the
+  per-pair test and the segment's id, 32 bytes that a warp stages into
+  shared memory with two 16-byte copies; ``shade_records`` (S_pad,
+  ALLT_ROWS), shade_all_t's columns made contiguous, so a winner's values
+  arrive as 16-byte loads.
+
 The tables are built in numpy float64 exactly as the JAX package builds
 them, rounded once to float32 and moved to a torch device.  Padding rows
 are invalid and can never be hit.
@@ -89,6 +97,12 @@ ALLT_T0, ALLT_DT = 53, 54  # cubic parameter window of the sub-segment
 ALLT_BAND = 55
 ALLT_ROWS = 64  # row count of shade_all_t, as in the JAX package
 
+# walk_records columns: the seg_consts columns the kernel's per-pair test
+# reads, then the segment id (int32 bits in a float32 slot).
+WALK_CONST_COLS = (CONST_EX, CONST_EY, CONST_C1, CONST_P0X, CONST_P0Y, CONST_BAND, CONST_QUAD)
+WALK_ID = 7
+WALK_COLS = 8
+
 # Sub-segment counts pad to this granularity (the chunk of the JAX package's
 # culling sweep; kept so s_pad and chunk_bounds match it).
 SEG_ALIGN = 64
@@ -109,7 +123,8 @@ META_FIELDS = (
 class DeviceScene:
     """Scene as consumed by the trace kernels: four float32 tensors on one
     device plus scalar metadata (the same fields as the JAX package's
-    DeviceScene)."""
+    DeviceScene), and the CUDA kernel's packed records of two of them
+    (pack_records)."""
 
     seg_consts: torch.Tensor  # (S_pad, CONST_COLS) f32
     shade_table: torch.Tensor  # (S_pad, SHADE_COLS) f32
@@ -117,6 +132,8 @@ class DeviceScene:
     # (S_pad/SEG_ALIGN, 4) f32 bounding circles [cx, cy, radius, 0] per
     # segment chunk (bands included).
     chunk_bounds: torch.Tensor
+    walk_records: torch.Tensor  # (S_pad, WALK_COLS) f32
+    shade_records: torch.Tensor  # (S_pad, ALLT_ROWS) f32: shade_all_t.T
     width: int
     height: int
     n_sub: int
@@ -132,6 +149,21 @@ class DeviceScene:
     @property
     def device(self) -> torch.device:
         return self.seg_consts.device
+
+
+def pack_records(seg_consts: torch.Tensor, shade_all_t: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The CUDA kernel's per-segment records, bit copies of the scene
+    tables on their device: ``walk_records`` (S_pad, WALK_COLS) holds
+    seg_consts' WALK_CONST_COLS and, in column WALK_ID, the segment's index
+    as int32 bits; ``shade_records`` (S_pad, ALLT_ROWS) is shade_all_t
+    transposed, contiguous."""
+    s_pad = seg_consts.shape[0]
+    walk = torch.empty((s_pad, WALK_COLS), dtype=torch.float32, device=seg_consts.device)
+    walk[:, :WALK_ID] = seg_consts[:, list(WALK_CONST_COLS)]
+    walk.view(torch.int32)[:, WALK_ID] = torch.arange(
+        s_pad, dtype=torch.int32, device=seg_consts.device
+    )
+    return {"walk_records": walk, "shade_records": shade_all_t.T.contiguous()}
 
 
 def from_jax_arrays(
@@ -150,6 +182,7 @@ def from_jax_arrays(
     m = {f: meta[f] for f in META_FIELDS}
     return DeviceScene(
         **tensors,
+        **pack_records(tensors["seg_consts"], tensors["shade_all_t"]),
         width=int(m["width"]),
         height=int(m["height"]),
         n_sub=int(m["n_sub"]),
@@ -447,11 +480,13 @@ def build_device_scene(
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
+    seg_consts, shade_all_t = put(consts), put(shade_all_t)
     return DeviceScene(
-        seg_consts=put(consts),
+        seg_consts=seg_consts,
         shade_table=put(shade),
-        shade_all_t=put(shade_all_t),
+        shade_all_t=shade_all_t,
         chunk_bounds=put(chunk_bounds),
+        **pack_records(seg_consts, shade_all_t),
         width=scene.width,
         height=scene.height,
         n_sub=n_sub,

@@ -28,6 +28,7 @@ plain route: the network's output is a bf16 residual, so single values move
 by one bf16 step (3.9e-3 below 1, 7.8e-3 from 1 to 2): max 1e-2, mean 1e-4.
 """
 
+import dataclasses
 import os
 
 import pytest
@@ -127,6 +128,67 @@ def test_kernel_matches_plain_at_the_denoised_frames_launch_shape(cuda, w, h):
     _assert_parity(_images(plain, h, w, cfg), _images(kern, h, w, cfg))
 
 
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 65])
+def test_id_order_lists_at_piece_boundaries(cuda, n):
+    """The kernel stages a walk 32 slots at a time and keeps a cell's first
+    two pieces for its samples: lists of n = 0, 1, 31, 32, 33 and 65 ids
+    (0..n-1 in every cell) against the full sweep of a scene cut to its
+    first n sub-segments, bit for bit, and against the plain version."""
+    size = 128
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(2, size, size)),
+                               device=cuda)
+    assert dt.n_sub >= 65
+    cfg = rt.RenderConfig(rays_per_pixel=32, rays_per_block=2048, use_denoiser=False)
+    cam = rt.Camera(0.8, 3.0, -5.0)
+    _, _, _, n_wedges, _, _, _, n_tiles = tc._grid_geom(dt, cfg, size, size * size)
+    slots = torch.arange(max(n, 1), dtype=torch.int32, device=cuda)
+    ids = slots.expand(n_tiles, n_wedges, -1).contiguous()
+    counts = torch.full((n_tiles, n_wedges), n, dtype=torch.int32, device=cuda)
+    tabs = tc.CandTables(ids, counts)
+    kern = tc.trace_sums_flat(dt, cam, cfg, 1, 0, size * size, tabs)
+    cut = tc.trace_sums_flat(dataclasses.replace(dt, n_sub=n), cam, cfg, 1, 0, size * size, None)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, cut):
+        assert torch.equal(a, b)
+    assert (float(kern[1].sum()) > 0.0) == (n > 0)
+    plain = tc.trace_sums_plain(dt, cam, cfg, 1, 0, size * size, tabs)
+    _assert_parity(_images(plain, size, size, cfg), _images(kern, size, size, cfg))
+
+
+def test_portal_scene_lists_equal_full_sweep(cuda):
+    """Portal bounces walk every segment in the pieces that take turns;
+    without tables the primary rays do too, and share the kept pieces."""
+    size = 128
+    dt = rt.build_device_scene(rt.load_scene_from_string(portal_weights_scene_xml(size, size)),
+                               device=cuda)
+    cfg = rt.RenderConfig(rays_per_pixel=16, rays_per_block=2048, use_denoiser=False)
+    cam = rt.Camera(0.9, 2.0, -3.0)
+    tabs = tc.build_cand_tables(dt, cam, cfg)
+    assert tabs is not None and tabs.dist_ordered and dt.n_sub % 64 != 0
+    kern = tc.trace_sums_flat(dt, cam, cfg, 4, 0, size * size, tabs)
+    full = tc.trace_sums_flat(dt, cam, cfg, 4, 0, size * size, None)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, full):
+        assert torch.equal(a, b)
+    plain = tc.trace_sums_plain(dt, cam, cfg, 4, 0, size * size)
+    _assert_parity(_images(plain, size, size, cfg), _images(full, size, size, cfg))
+
+
+def test_trace_kernel_info(cuda):
+    """Each instantiation built within its launch bounds: registers for at
+    least seven 128-thread blocks per SM, a few hundred bytes of local memory
+    at most (ptxas spills in shading, not in the walks), and as static
+    shared memory the warps' piece buffers (4 warps x 2 pieces x 1152
+    bytes) and the threads' sums and portal chains (10 floats each)."""
+    info = tc.trace_kernel_info()
+    assert [i["name"] for i in info] == list(tc.KERNEL_INSTANCES)
+    for i in info:
+        assert 0 < i["registers"] <= 72 and i["block_threads"] == 128
+        assert i["static_smem_bytes"] == 4 * 2 * 1152 + 10 * 128 * 4
+        assert i["dynamic_smem_bytes"] == 0
+        assert i["blocks_per_sm"] >= 7 and i["local_bytes"] <= 256
+
+
 def test_wrapper_rejects_bad_tables(cuda):
     size = 64
     dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, size, size)), device=cuda)
@@ -216,6 +278,8 @@ def _assert_dense(dt, cam, cfg, frame, px_start, n_px, want_kind, fallback=True)
     if fallback:
         assert stats["fallback_rays"] > 0 and stats["chunks"] >= stats["fallback_rays"]
         assert stats["chunk_pairs"] <= stats["chunks"] * tc.SEG_CHUNK
+    # a warp walks its list as long as its longest walk
+    assert stats["list_slots"] <= stats["warp_slots"] <= 32 * stats["list_slots"]
     return stats
 
 
@@ -230,6 +294,22 @@ def test_dense_lists_match_full_sweep_and_plain(cuda, name, exact):
     # walk and its exit alone; the strokes overflow into the chunk lists
     _assert_dense(dt, rt.Camera(0.9, 3.0, -5.0), cfg, 3, 0, size * size, "seg",
                   fallback=name == "strokes")
+
+
+@pytest.mark.parametrize("cand_len", [1, 31, 32, 33, 65])
+def test_dense_lists_at_piece_boundaries(cuda, monkeypatch, cand_len):
+    """Capped distance-ordered lists of 1, 31, 32, 33 and 65 slots (around
+    the 32-slot pieces the warp stages): nearly every cell overflows, so
+    rays leave their list at every slot, at the end of a piece or past the
+    list into the chunk walk, on a scene whose n_sub is no multiple of 64
+    (a short last chunk)."""
+    size = 256
+    dt = _dense_case(cuda, "strokes", size, size)
+    assert dt.n_sub % tc.SEG_CHUNK != 0
+    monkeypatch.setattr(tc, "_cand_len_for", lambda s_pad: cand_len)
+    cfg = rt.RenderConfig(rays_per_pixel=64, use_denoiser=False)
+    stats = _assert_dense(dt, rt.Camera(0.9, 3.0, -5.0), cfg, 3, 0, size * size, "seg")
+    assert stats["list_slots"] <= stats["live_rays"] * cand_len
 
 
 @pytest.mark.parametrize("w,h,row0,rows", [
