@@ -21,7 +21,16 @@ paths through the public entry points, checking the images:
   sorted chunk lists, held against the kernel's own full sweep bit for bit
   and against the plain version; also a dolphin-class scene (7360) at 64
   rays per pixel, the chunk-lists-only kind, and the lady_bug-class scene
-  at 8 rays per pixel (two wedges, where no ray leaves its list early).
+  at 8 rays per pixel (two wedges, where no ray leaves its list early);
+* the interactive session: an InteractiveSession of the denoised frame on a
+  scripted zoom / pan sequence ([grid:denoised]) and of the dense-scene
+  frame ([grid:dense]), whose moving frames take their tables from the world
+  grid (build_cand_grid, grid_tables) and are held bitwise against the
+  kernel's full sweep and the camera's own tables, and timed against a
+  session that rebuilds the camera's tables on each move; a session saved
+  and resumed ([session_resume]); the MJPEG viewer on a local port
+  ([http_viewer]); the native scene loader against the Python one
+  ([native_loader]); the CLI in a subprocess ([cli:*]).
 
 After the build, [trace_kernel:*] prints each instantiation of the trace
 kernel as built: registers, local (spilled) bytes and shared memory per
@@ -54,6 +63,7 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import raytracingdiffusioncurves_torch as rt  # noqa: E402
+from raytracingdiffusioncurves_torch.cli import shipped_weights  # noqa: E402
 from raytracingdiffusioncurves_torch.models import denoiser, renderer  # noqa: E402
 from raytracingdiffusioncurves_torch.ops import (  # noqa: E402
     _build,
@@ -69,6 +79,7 @@ from raytracingdiffusioncurves_torch.utils.scenes import (  # noqa: E402
     portal_weights_scene_xml,
     seeded_scene_xml,
 )
+from raytracingdiffusioncurves_torch.viewer import ZOOM_STEP  # noqa: E402
 
 SIZE, RPP = 1024, 128
 BAND_ROW, BAND_ROWS = 480, 64
@@ -1028,6 +1039,681 @@ def dense_phases():
     )
 
 
+# ---------------------------------------------------------------------------
+# the interactive session: world grid, checkpoints, CLI, HTTP viewer, loader
+# ---------------------------------------------------------------------------
+
+# The scripted denoised sequence: three frames at rest (the first builds the
+# grid), four zoom-in ticks, four drags, two fast zoom-outs of three ticks
+# (the second passes the grid's zoom_max: a rebuild), three frames at rest.
+GRID_DN_EVENTS = ([None] * 3 + [("scroll", 1.0)] * 4 + [("drag", 160.0, -90.0)] * 4
+                  + [("scroll", -3.0)] * 2 + [None] * 3)
+# The dense sequence: two frames at rest, a zoom step, three pan steps, rest.
+GRID_DENSE_EVENTS = [None, None, ("scroll", 1.0), ("drag", 220.0, -130.0),
+                     ("drag", -220.0, 130.0), ("drag", 220.0, -130.0), None]
+# Files the session phases write (scene XMLs, images, checkpoints): inside
+# the checkout, in a directory .gitignore lists.
+SMOKE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "smoke"
+
+
+class RebuildSession(rt.InteractiveSession):
+    """The grid's comparator: a session whose every camera change rebuilds
+    the camera's own tables (build_cand_tables, seg_max_count,
+    narrow_cand_tables: one host sync), as a caller of render_frame does
+    without the world grid."""
+
+    def accel_tables(self):
+        if self.camera != self._cand_camera:
+            self._cand_camera, self._cand_tables = self.camera, None
+        return super().accel_tables()
+
+
+class StaleGridSession(rt.InteractiveSession):
+    """The JAX session's rule: the grid serves every camera it covers, at
+    any depth of zoom below the one it was built for."""
+
+    def grid_serves(self):
+        return self.grid is not None and trace_cuda.grid_covers(
+            self.grid, self.scene, self.camera, self.config)
+
+
+def apply_event(session, ev):
+    if ev is not None:
+        getattr(session, ev[0])(*ev[1:])
+
+
+def check_grid_frame(label, session, frame, band=None):
+    """The trace sums of the session's camera on its grid tables == the
+    kernel's full sweep == the camera's own tables, bitwise: on the whole
+    frame, or on ``band`` (row0, rows) starting on a tile row."""
+    scene, cfg, cam, grid = session.scene, session.config, session.camera, session.grid
+    w = scene.width
+    px0, n_px = (0, w * scene.height) if band is None else (band[0] * w, band[1] * w)
+    picked = trace_cuda.grid_tables(grid, scene, cam, cfg, px0, n_px)
+    own = trace_cuda.build_cand_tables(scene, cam, cfg, px0, n_px)
+    a = trace_cuda.trace_sums_flat(scene, cam, cfg, frame, px0, n_px, picked, grid.gather_len)
+    b = trace_cuda.trace_sums_flat(scene, cam, cfg, frame, px0, n_px, None)
+    c = trace_cuda.trace_sums_flat(scene, cam, cfg, frame, px0, n_px, own,
+                                   trace_cuda.seg_max_count(scene, own))
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        require(torch.equal(x, y), f"{label}: grid tables != full sweep at {cam}")
+        require(torch.equal(x, z), f"{label}: grid tables != the camera's own tables at {cam}")
+    require(float(a[1].sum()) > 0.0, f"{label}: the trace has weight")
+
+
+def run_checked_sequence(label, session, events, bands=None):
+    """The scripted events through the session, frame by frame.  A moving
+    frame that the current grid serves enqueues under the sync check (the
+    event, grid_covers, grid_tables and the frame with the UNet); each
+    moving frame's sums on grid tables are held bitwise against the full
+    sweep and the camera's own tables (``bands``: per moving frame, None
+    for the whole frame or (row0, rows)).  Returns (moving frames served by
+    an existing grid, grid builds)."""
+    served = 0
+    moving_i = 0
+    for i, ev in enumerate(events):
+        torch.cuda.synchronize()
+        moving = i == 0 or ev is not None
+        if moving and session.grid is not None:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                apply_event(session, ev)
+                covered = session.grid_serves()
+                if covered:
+                    session.render(block=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if covered:
+                served += 1
+            else:
+                session.render(block=False)
+        else:
+            apply_event(session, ev)
+            session.render(block=False)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(session.last_image).all()), f"{label}: finite frame {i}")
+        if moving:
+            band = None if bands is None else bands[moving_i]
+            check_grid_frame(f"{label} frame {i}", session, session.state.frame - 1, band)
+            moving_i += 1
+    return served, session.grid_builds
+
+
+def timed_sequence(session, events):
+    """The events with render(block=True): per frame (kind, wall ms); kind
+    "first" (frame 0), "build" (a move that built a grid), "moving",
+    "settle" (the first frame at rest after a move: it builds the camera's
+    own tables) or "resting" (on those tables)."""
+    out = []
+    for i, ev in enumerate(events):
+        builds = session.grid_builds
+        apply_event(session, ev)
+        session.render(block=True)
+        if i == 0:
+            kind = "first"
+        elif ev is not None:
+            kind = "build" if session.grid_builds > builds else "moving"
+        else:
+            kind = "resting" if out[-1][0] in ("settle", "resting") else "settle"
+        out.append((kind, session.frame_times[-1] * 1e3))
+    return out
+
+
+def grid_and_rebuild_in_turns(dscene, cfg, net, events):
+    """timed_sequence of a fresh session on the world grid and of one that
+    rebuilds on each move, in turns (grid, rebuild, rebuild, grid): the rows
+    of each, concatenated."""
+    g_rows, r_rows = [], []
+    for cls in (rt.InteractiveSession, RebuildSession, RebuildSession, rt.InteractiveSession):
+        rows = timed_sequence(cls(dscene, cfg, denoiser=net), events)
+        (g_rows if cls is rt.InteractiveSession else r_rows).extend(rows)
+    return g_rows, r_rows
+
+
+def mean_of(rows, kinds):
+    """Mean ms of the rows of one kind, or of any kind in a tuple."""
+    kinds = (kinds,) if isinstance(kinds, str) else kinds
+    xs = [ms for k, ms in rows if k in kinds]
+    return sum(xs) / len(xs) if xs else float("nan")
+
+
+# The dense depth sequences: at rest, k zoom-in steps in one scroll, four
+# pan steps at that depth.
+DEPTH_PANS = [("drag", 220.0, -130.0), ("drag", -220.0, 130.0)] * 2
+
+
+def depth_sequences(dscene, cfg, net):
+    """The dense frame's full moving frames at zoom-in depths 1-4: the
+    session (its grid serves one zoom-in step), the JAX session's rule (the
+    stale grid serves every depth) and a rebuild of the camera's tables on
+    each move, each sequence timed frame by frame, in turns (A B C C B A).
+    Returns {depth: {variant: mean ms of the zoom and pan frames}}."""
+    out = {}
+    for k in ZOOM_DEPTHS[1:]:
+        events = [None, ("scroll", float(k))] + DEPTH_PANS
+        rows = {"session": [], "stale_grid": [], "rebuild": []}
+        builds = {}
+        order = (("session", rt.InteractiveSession), ("stale_grid", StaleGridSession),
+                 ("rebuild", RebuildSession))
+        for name, cls in order + order[::-1]:
+            sess = cls(dscene, cfg, denoiser=net)
+            rows[name].append(timed_sequence(sess, events)[1:])  # the zoom, the pans
+            builds[name] = sess.grid_builds
+            del sess
+        moves = ("moving", "build")
+        means = {n: mean_of([r for t in turns for r in t], moves) for n, turns in rows.items()}
+        pans = {n: mean_of([r for t in turns for r in t[1:]], moves) for n, turns in rows.items()}
+        require(builds["session"] == (1 if k < 2 else 2) and builds["stale_grid"] == 1,
+                f"grid:dense depth {k}: grid builds {builds}")
+        phase(f"grid:dense:depth_{k}_frames", frames=len(events) - 1,
+              **{f"{n}_ms": f"{v:.3f}" for n, v in means.items()},
+              **{f"{n}_pan_ms": f"{v:.3f}" for n, v in pans.items()},
+              session_grid_builds=builds["session"],
+              faster=min(means, key=means.get))
+        out[k] = means
+    return out
+
+
+def chained_moving_ms(session, events):
+    """The events with render(block=False) and a CUDA event pair around
+    each frame: (device ms, host enqueue ms) per moving frame that an
+    existing grid served, chained."""
+    marks = []
+    for i, ev in enumerate(events):
+        builds = session.grid_builds
+        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        apply_event(session, ev)
+        session.render(block=False)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if i > 0 and ev is not None and session.grid_builds == builds:
+            marks.append((start, end, host_ms))
+    torch.cuda.synchronize()
+    dev = [s.elapsed_time(e) for s, e, _ in marks]
+    return sum(dev) / len(dev), sum(h for _, _, h in marks) / len(marks)
+
+
+def moving_step(session, dx=40.0, dy=25.0):
+    """A step that drags the camera back and forth inside the grid and
+    enqueues the frame: a moving frame on every call."""
+    sign = [1.0]
+
+    def step():
+        session.drag(sign[0] * dx, sign[0] * dy)
+        sign[0] = -sign[0]
+        session.render(block=False)
+
+    return step
+
+
+def mean_count(tables):
+    """Mean list length over (tile, wedge) cells: the slots each ray of a
+    slot-mode cell tests."""
+    return float(tables.counts.float().mean())
+
+
+# Zoom-in depths of the sweep: steps past the camera that built the grid
+# (depth 0: that camera, 1.5x below the grid's zoom_max).
+ZOOM_DEPTHS = (0, 1, 2, 3, 4)
+
+
+def zoom_depth_sweep(label, dscene, cfg, grid, reps):
+    """The trace on one grid's tables as the camera zooms in past the one
+    that built it (the cells keep their zoom_max size while the tiles
+    shrink), against the camera's own tables rebuilt there and against a
+    fresh grid built there as the session builds one.  The sums of the
+    three are held bitwise equal.  Returns one dict per depth."""
+    n_px = dscene.width * dscene.height
+    out = []
+    for k in ZOOM_DEPTHS:
+        cam = rt.Camera(grid.zoom_max / ZOOM_STEP ** (k + 1))
+        require(trace_cuda.grid_covers(grid, dscene, cam, cfg), f"{label}: depth {k} covered")
+        picked = trace_cuda.grid_tables(grid, dscene, cam, cfg)
+        gather_ms, _ = cuda_ms(lambda: trace_cuda.grid_tables(grid, dscene, cam, cfg), reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        own = rt.build_cand_tables(dscene, cam, cfg)
+        own_gl = rt.seg_max_count(dscene, own)
+        if own_gl is not None:
+            own = trace_cuda.narrow_cand_tables(own, own_gl)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        fresh = rt.InteractiveSession(dscene, cfg, camera=cam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fgrid = fresh.world_grid()
+        torch.cuda.synchronize()
+        fresh_build_s = time.perf_counter() - t0
+        fpicked = trace_cuda.grid_tables(fgrid, dscene, cam, cfg)
+        runs = {}
+        for name, tabs, gl in (("grid", picked, grid.gather_len), ("own", own, own_gl),
+                               ("fresh", fpicked, fgrid.gather_len)):
+            runs[name] = cuda_ms(lambda: trace_cuda.trace_sums_flat(
+                dscene, cam, cfg, 0, 0, n_px, tabs, gl), reps, warm_up=True)
+        for x, y, z in zip(runs["grid"][1], runs["own"][1], runs["fresh"][1]):
+            require(torch.equal(x, y) and torch.equal(x, z),
+                    f"{label}: depth {k}: grid, own and fresh-grid sums differ")
+        row = dict(depth=k, zoom=cam.zoom_factor, ratio=grid.zoom_max / cam.zoom_factor,
+                   gather_ms=gather_ms, trace_ms_grid=runs["grid"][0],
+                   trace_ms_own=runs["own"][0], trace_ms_fresh_grid=runs["fresh"][0],
+                   own_rebuild_s=rebuild_s, fresh_grid_build_s=fresh_build_s)
+        if grid.tables.dist_ordered:
+            for name, tabs in (("grid", picked), ("own", own), ("fresh_grid", fpicked)):
+                st = trace_cuda.trace_walk_stats(dscene, cam, cfg, 0, 0, n_px, tabs)
+                live = max(st["live_rays"], 1)
+                row[f"slots_per_ray_{name}"] = st["list_slots"] / live
+                row[f"fallback_share_{name}"] = st["fallback_rays"] / live
+        else:
+            for name, tabs in (("grid", picked), ("own", own), ("fresh_grid", fpicked)):
+                row[f"slots_per_ray_{name}"] = mean_count(tabs)
+        # what a moving frame at this depth adds to the rest of the frame
+        row["stale_grid_ms"] = gather_ms + runs["grid"][0]
+        row["rebuild_own_ms"] = 1e3 * rebuild_s + runs["own"][0]
+        row["fresh_grid_ms"] = gather_ms + runs["fresh"][0]
+        phase(f"{label}:zoom_in_{k}", **{key: (f"{v:.4f}" if isinstance(v, float) else v)
+                                          for key, v in row.items()})
+        out.append(row)
+        del picked, own, fresh, fgrid, fpicked, runs
+    return out
+
+
+def grid_denoised_phase(dscene, cfg, net):
+    """[grid:denoised]: the seeded scene at 1920x1088 x 8 rays per pixel
+    with the shipped UNet, an InteractiveSession on the scripted sequence
+    GRID_DN_EVENTS: every moving frame checked; then the same sequence timed
+    on the world grid and with a rebuild of the camera's tables on each
+    move, a moving frame on the card alone, and the trace on grid tables
+    against the camera's own."""
+    n_px = dscene.width * dscene.height
+    s = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    t0 = time.perf_counter()
+    s.render()  # the first frame builds the grid
+    first_s = time.perf_counter() - t0
+    grid = s.grid
+    require(grid is not None and not grid.tables.dist_ordered, "denoised grid: slot mode")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = trace_cuda.build_cand_grid(dscene, cfg, grid.x0, grid.y0,
+                                       grid.x0 + grid.nx * grid.pitch_x,
+                                       grid.y0 + grid.ny * grid.pitch_y, grid.zoom_max)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(again.gather_len == grid.gather_len and again.nx == grid.nx,
+            "denoised grid: a second build is the same grid")
+    del again
+
+    # correctness: the sequence checked frame by frame, launches counted
+    s = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    trace_cuda.reset_launch_count()
+    conv_cuda.reset_launch_count()
+    served, builds = run_checked_sequence("grid:denoised", s, GRID_DN_EVENTS)
+    n_moving = sum(1 for i, ev in enumerate(GRID_DN_EVENTS) if i == 0 or ev is not None)
+    # a frame: one launch; each moving frame's check: three more
+    want_trace = len(GRID_DN_EVENTS) + 3 * n_moving
+    require(trace_cuda.LAUNCHES == want_trace,
+            f"grid:denoised: trace launches {trace_cuda.LAUNCHES} != {want_trace}")
+    require(conv_cuda.LAUNCHES == 9 * len(GRID_DN_EVENTS),
+            f"grid:denoised: conv launches {conv_cuda.LAUNCHES}")
+    # grid builds: the first frame, the second and fourth zoom-in ticks (one
+    # step past the camera each grid was built for) and both zoom-outs (past
+    # zoom_max); every other moving frame is served by a grid
+    require(builds == 5 and served == n_moving - 5,
+            f"grid:denoised: {builds} grid builds, {served} frames served by a grid")
+    require(s.camera.zoom_factor > ZOOM_STEP, "the sequence left the first grid's zoom range")
+
+    # the trace at a moved camera: grid tables against the camera's own
+    cam = rt.Camera(0.444, -60.0, 35.0)
+    require(trace_cuda.grid_covers(grid, dscene, cam, cfg), "the first grid covers the probe")
+    picked = trace_cuda.grid_tables(grid, dscene, cam, cfg)
+    own = rt.build_cand_tables(dscene, cam, cfg)
+    own_gl = rt.seg_max_count(dscene, own)
+    own = trace_cuda.narrow_cand_tables(own, own_gl)
+    grid_trace_ms, _ = cuda_ms(lambda: trace_cuda.trace_sums_flat(
+        dscene, cam, cfg, 0, 0, n_px, picked, grid.gather_len), 5, warm_up=True)
+    own_trace_ms, _ = cuda_ms(lambda: trace_cuda.trace_sums_flat(
+        dscene, cam, cfg, 0, 0, n_px, own, own_gl), 5, warm_up=True)
+    gather_ms, _ = cuda_ms(lambda: trace_cuda.grid_tables(grid, dscene, cam, cfg), 5, warm_up=True)
+    t_ops_ms, t_bytes_ms = list_bound("grid_denoised_trace_bound", dscene, cam, cfg, picked,
+                                      grid_trace_ms)
+    depths = zoom_depth_sweep("grid:denoised", dscene, cfg, grid, 5)
+
+    # timed: the world grid against a rebuild on each move, frames
+    # synchronized, two sequences of each in turns
+    g_rows, r_rows = grid_and_rebuild_in_turns(dscene, cfg, net, GRID_DN_EVENTS)
+    chained_ms, enqueue_ms = chained_moving_ms(
+        rt.InteractiveSession(dscene, cfg, denoiser=net), GRID_DN_EVENTS)
+    alone = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    alone.render()
+    device_ms = device_frame_ms(moving_step(alone))
+    require(alone.grid_builds == 1, "the card-alone frames stayed in the grid")
+    grid_moving, rebuild_moving = mean_of(g_rows, "moving"), mean_of(r_rows, "moving")
+    phase("grid:denoised", size=f"{dscene.width}x{dscene.height}", rpp=cfg.rays_per_pixel,
+          frames=len(GRID_DN_EVENTS), moving_frames=n_moving, served_by_grid=served,
+          grid_builds=builds, grid=f"{grid.nx}x{grid.ny}", grid_cells=grid.nx * grid.ny,
+          grid_bytes=grid.nbytes, grid_build_s=f"{build_s:.4f}", first_frame_s=f"{first_s:.3f}",
+          zoom_max=grid.zoom_max, gather_len=grid.gather_len, own_gather_len=own_gl,
+          selected_tables_bytes=picked.nbytes, gather_ms=f"{gather_ms:.4f}",
+          slots_per_ray_grid=f"{mean_count(picked):.2f}",
+          slots_per_ray_own=f"{mean_count(own):.2f}",
+          trace_ms_grid=f"{grid_trace_ms:.3f}", trace_ms_own=f"{own_trace_ms:.3f}",
+          moving_frame_ms_grid=f"{grid_moving:.3f}",
+          moving_frame_ms_rebuild=f"{rebuild_moving:.3f}",
+          moves_ms_grid=f"{mean_of(g_rows, ('moving', 'build')):.3f}",
+          build_frame_ms_grid=f"{mean_of(g_rows, 'build'):.3f}",
+          settle_frame_ms_grid=f"{mean_of(g_rows, 'settle'):.3f}",
+          resting_frame_ms_grid=f"{mean_of(g_rows, 'resting'):.3f}",
+          resting_frame_ms_rebuild=f"{mean_of(r_rows, 'resting'):.3f}",
+          moving_frame_chained_device_ms=f"{chained_ms:.3f}",
+          moving_frame_host_enqueue_ms=f"{enqueue_ms:.3f}",
+          moving_frame_device_ms_queue_full=f"{device_ms:.3f}",
+          faster="grid" if mean_of(g_rows, ("moving", "build")) < rebuild_moving else "rebuild",
+          sums_eq_full_and_own="bitwise", no_host_sync=True,
+          trace_launches=want_trace, conv_launches=9 * len(GRID_DN_EVENTS))
+    return dict(grid_denoised_trace_ms=grid_trace_ms, grid_denoised_own_trace_ms=own_trace_ms,
+                grid_denoised_slots_per_ray=mean_count(picked),
+                grid_denoised_own_slots_per_ray=mean_count(own),
+                grid_denoised_bound_ms=max(t_ops_ms, t_bytes_ms),
+                grid_denoised_moving_frame_ms=grid_moving,
+                grid_denoised_rebuild_moving_frame_ms=rebuild_moving,
+                grid_denoised_moving_device_ms=device_ms,
+                grid_denoised_build_s=build_s, grid_denoised_bytes=grid.nbytes,
+                grid_denoised_launches=want_trace,
+                grid_denoised_zoom_in_trace_ms=[r["trace_ms_grid"] for r in depths])
+
+
+def grid_dense_phase(net):
+    """[grid:dense]: the lady_bug-class scene at 1920x1088 x 256 rays per
+    pixel with the shipped UNet through an InteractiveSession: the zoom
+    step checked on the whole frame, the pan steps on two tile rows each,
+    the plain version on half a tile row of grid tables; then the trace on
+    grid tables against the camera's own, and the sequence timed against a
+    rebuild on each move."""
+    dscene = rt.build_device_scene(rt.load_scene_from_string(
+        dense_scene_xml(0, DN_W, DN_H, "lady_bug")))
+    cfg = rt.RenderConfig(rays_per_pixel=DENSE_RPP)
+    n_px = DN_W * DN_H
+    band0 = DENSE_TILE_ROWS * min(16, DN_H // DENSE_TILE_ROWS - 4)
+    bands = [None, None, (band0, 2 * DENSE_TILE_ROWS),
+             (band0 + 2 * DENSE_TILE_ROWS, 2 * DENSE_TILE_ROWS), (band0, 2 * DENSE_TILE_ROWS)]
+    s = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = s.world_grid()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kind = "seg" if grid.tables.ids is not None else "chunk"
+    require(grid.tables.dist_ordered, "dense grid: distance order")
+    del grid
+    s = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    served, builds = run_checked_sequence("grid:dense", s, GRID_DENSE_EVENTS, bands)
+    require(builds == 1 and served == 4, f"grid:dense: {builds} builds, {served} served")
+
+    # the plain version on half a tile row of grid tables at the panned camera
+    cam = s.camera
+    rows, px0 = DENSE_TILE_ROWS // 2, band0 * DN_W
+    picked_band = trace_cuda.grid_tables(s.grid, dscene, cam, cfg, px0, rows * DN_W)
+    kern = trace_cuda.trace_sums_flat(dscene, cam, cfg, 5, px0, rows * DN_W, picked_band)
+    plain_ms, plain = cuda_ms(lambda: trace_cuda.trace_sums_plain(
+        dscene, cam, cfg, 5, px0, rows * DN_W, picked_band), 1)
+    err = parity(normalized(plain, rows, DN_W, cfg), normalized(kern, rows, DN_W, cfg))
+    del picked_band, kern, plain
+
+    # the trace alone at the zoomed camera: grid tables against its own
+    zcam = rt.Camera(1.0 / ZOOM_STEP)
+    picked = trace_cuda.grid_tables(s.grid, dscene, zcam, cfg)
+    own = rt.build_cand_tables(dscene, zcam, cfg)  # the allocations, then timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    own = rt.build_cand_tables(dscene, zcam, cfg)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    grid_trace_ms, _ = cuda_ms(lambda: trace_cuda.trace_sums_flat(
+        dscene, zcam, cfg, 0, 0, n_px, picked), 3, warm_up=True)
+    own_trace_ms, _ = cuda_ms(lambda: trace_cuda.trace_sums_flat(
+        dscene, zcam, cfg, 0, 0, n_px, own), 3, warm_up=True)
+    gather_ms, _ = cuda_ms(lambda: trace_cuda.grid_tables(s.grid, dscene, zcam, cfg), 3,
+                           warm_up=True)
+    g_st = dense_stats("grid_lady_bug", dscene, cfg, zcam, picked, grid_trace_ms,
+                       need_fallback=False)
+    o_st = trace_cuda.trace_walk_stats(dscene, zcam, cfg, 0, 0, n_px, own)
+    o_live = max(o_st["live_rays"], 1)
+    g_full = trace_cuda.trace_walk_stats(dscene, zcam, cfg, 0, 0, n_px, picked)
+    chunks_per_fb = g_full["chunks"] / max(g_full["fallback_rays"], 1)
+    grid_cells, grid_ny, grid_nx, grid_bytes = (s.grid.nx * s.grid.ny, s.grid.ny, s.grid.nx,
+                                                s.grid.nbytes)
+    del picked, own
+    depths = zoom_depth_sweep("grid:dense", dscene, cfg, s.grid, 3)
+    del s
+
+    g_rows, r_rows = grid_and_rebuild_in_turns(dscene, cfg, net, GRID_DENSE_EVENTS)
+    depth_frames = depth_sequences(dscene, cfg, net)
+    alone = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    alone.render()
+    device_ms = device_frame_ms(moving_step(alone, 120.0, 70.0))
+    require(alone.grid_builds == 1, "the card-alone frames stayed in the grid")
+    del alone
+    grid_moving, rebuild_moving = mean_of(g_rows, "moving"), mean_of(r_rows, "moving")
+    phase("grid:dense", kind=kind, grid=f"{grid_nx}x{grid_ny}", grid_cells=grid_cells,
+          grid_bytes=grid_bytes, grid_build_s=f"{build_s:.4f}",
+          own_tables_rebuild_s=f"{rebuild_s:.4f}", gather_ms=f"{gather_ms:.3f}",
+          frames=len(GRID_DENSE_EVENTS), served_by_grid=served,
+          sums_eq_full_and_own="bitwise(whole frame at the zoom, bands at the pans)",
+          plain_rows=rows, max_abs_err=f"{err:.3e}", plain_ms=f"{plain_ms:.1f}",
+          trace_ms_grid=f"{grid_trace_ms:.3f}", trace_ms_own=f"{own_trace_ms:.3f}",
+          slots_per_ray_grid=f"{g_st['slots_per_ray']:.2f}",
+          slots_per_ray_own=f"{o_st['list_slots'] / o_live:.2f}",
+          fallback_share_grid=f"{g_st['fallback_share']:.5f}",
+          fallback_share_own=f"{o_st['fallback_rays'] / o_live:.5f}",
+          chunks_per_fallback_ray_grid=f"{chunks_per_fb:.2f}",
+          warp_slot_efficiency_grid=f"{g_st['warp_slot_efficiency']:.4f}",
+          moving_frame_ms_grid=f"{grid_moving:.3f}",
+          moving_frame_ms_rebuild=f"{rebuild_moving:.3f}",
+          settle_frame_ms_grid=f"{mean_of(g_rows, 'settle'):.3f}",
+          moving_frame_device_ms_queue_full=f"{device_ms:.3f}",
+          faster="grid" if mean_of(g_rows, ("moving", "build")) < rebuild_moving else "rebuild")
+    return dict(grid_dense_trace_ms=grid_trace_ms, grid_dense_own_trace_ms=own_trace_ms,
+                grid_dense_slots_per_ray=g_st["slots_per_ray"],
+                grid_dense_own_slots_per_ray=o_st["list_slots"] / o_live,
+                grid_dense_fallback_share=g_st["fallback_share"],
+                grid_dense_warp_slot_efficiency=g_st["warp_slot_efficiency"],
+                grid_dense_bound_ms=g_st["bound_ms"], grid_dense_bound_by=g_st["bound_by"],
+                grid_dense_max_abs_err=err, grid_dense_plain_ms=plain_ms,
+                grid_dense_moving_frame_ms=grid_moving,
+                grid_dense_rebuild_moving_frame_ms=rebuild_moving,
+                grid_dense_moving_device_ms=device_ms, grid_dense_build_s=build_s,
+                grid_dense_bytes=grid_bytes, grid_dense_kind=kind,
+                grid_dense_zoom_in_trace_ms=[r["trace_ms_grid"] for r in depths],
+                grid_dense_depth_frame_ms={k: v["session"] for k, v in depth_frames.items()})
+
+
+def session_resume_phase(dscene, cfg, net):
+    """[session_resume]: a session saved after five frames and loaded again;
+    the next frame from both is equal bitwise (the RNG is keyed on the
+    frame counter, the tables of either are conservative)."""
+    s = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    for ev in [None, None, ("scroll", 1.0), ("drag", 60.0, -40.0), None]:
+        apply_event(s, ev)
+        s.render()
+    path = str(SMOKE_DIR / "session.npz")
+    t0 = time.perf_counter()
+    rt.save_session(path, s.state, s.camera)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, cam, params = rt.load_session(path)
+    load_s = time.perf_counter() - t0
+    require(params is None and cam == s.camera and state.frame == s.state.frame == 5,
+            "session_resume: camera and frame")
+    require(torch.equal(state.prev_image, s.state.prev_image) and torch.equal(state.flow, s.state.flow),
+            "session_resume: state bitwise")
+    resumed = rt.InteractiveSession(dscene, cfg, camera=cam, denoiser=net)
+    resumed.state = state
+    a = s.render()
+    b = resumed.render()
+    require(torch.equal(a, b) and torch.equal(s.state.prev_image, resumed.state.prev_image),
+            "session_resume: the next frame differs")
+    phase("session_resume", frames_before=5, bytes=pathlib.Path(path).stat().st_size,
+          save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}", next_frame="bitwise")
+
+
+def run_cli(label, xml, rpp, args):
+    """``python3 -m raytracingdiffusioncurves_torch`` on a generated scene,
+    as a subprocess; returns (printed mean frame ms, stats JSON lines, the
+    image)."""
+    from PIL import Image
+
+    xml_path, png = SMOKE_DIR / f"{label}.xml", SMOKE_DIR / f"{label}.png"
+    xml_path.write_text(xml)
+    cmd = [sys.executable, "-m", "raytracingdiffusioncurves_torch", str(xml_path), str(rpp),
+           *args, "--stats", "--out", str(png)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=pathlib.Path(__file__).resolve().parent)
+    wall_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.replace("\r", "\n").splitlines()
+    setup = next(ln for ln in lines if ln.startswith("Setup took : "))
+    mean = next(ln for ln in lines if ln.startswith("Average frame time : "))
+    phases = json.loads(next(ln for ln in lines if ln.startswith('{"scene_load"')))
+    metrics = json.loads(next(ln for ln in lines if ln.startswith('{"counters"')))
+    require(lines[-1] == f"wrote {png}", f"cli {label}: last line {lines[-1]!r}")
+    img = Image.open(png)
+    return (float(mean.split(":")[1].strip()[:-2]), float(setup.split(":")[1].strip()[:-2]),
+            phases, metrics, img, wall_s)
+
+
+def cli_phase():
+    """[cli]: the CLI as a user runs it, in a subprocess on the card: the
+    seeded scene at 1024^2 x 128 rays per pixel without the denoiser (11
+    frames: one of setup, ten timed), and at 1920x1088 x 8 rays per pixel
+    with the shipped weights (the default)."""
+    out = {}
+    for label, (w, h), rpp, args in (
+        ("cli_1024", (SIZE, SIZE), RPP, ["--no-denoiser", "--frames", "11"]),
+        ("cli_denoised", (DN_W, DN_H), DN_RPP, ["--frames", "11"]),
+    ):
+        mean_ms, setup_ms, phases, metrics, img, wall_s = run_cli(
+            label, seeded_scene_xml(0, w, h), rpp, args)
+        require(img.size == (w, h) and img.mode == "RGBA", f"cli {label}: image {img.size}")
+        require(phases["frame"]["count"] == 10 and metrics["counters"]["frames"] == 10,
+                f"cli {label}: frames")
+        weights = "none" if "--no-denoiser" in args else pathlib.Path(shipped_weights()).name
+        phase(f"cli:{label}", size=f"{w}x{h}", rpp=rpp, weights=weights,
+              average_frame_time_ms=f"{mean_ms:.2f}",
+              setup_ms=f"{setup_ms:.1f}", wall_s=f"{wall_s:.2f}", phases=json.dumps(phases),
+              metrics=json.dumps(metrics))
+        out[label] = mean_ms
+    return out
+
+
+def http_viewer_phase(dscene, cfg, net):
+    """[http_viewer]: HttpViewer on port 0 over the denoised session: five
+    frames read from /stream, a scroll and a drag posted, a new frame that
+    differs and a moved camera required.  The server stops in a finally and
+    its threads are joined with a timeout."""
+    import urllib.request
+
+    from raytracingdiffusioncurves_torch.viewer_http import HttpViewer
+
+    s = rt.InteractiveSession(dscene, cfg, denoiser=net)
+    v = HttpViewer(s, port=0).start()
+    try:
+        base = f"http://127.0.0.1:{v.port}"
+        first = v.wait_frame(timeout=120)
+        with urllib.request.urlopen(base + "/stream", timeout=60) as r:
+            raw, t0 = b"", time.perf_counter()
+            while raw.count(b"--frame") < 6:  # five whole parts after the first boundary
+                chunk = r.read(1 << 16)
+                require(len(chunk) > 0, "http_viewer: the stream ended")
+                raw += chunk
+            stream_s = time.perf_counter() - t0
+        cam0, f0 = s.camera, v.frames
+        before, _ = v.wait_frame(after=f0 - 1, timeout=60)
+        for ev in ({"type": "scroll", "y": 1.0}, {"type": "drag", "dx": 40.0, "dy": -25.0}):
+            req = urllib.request.Request(base + "/event", data=json.dumps(ev).encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                require(r.status == 204, "http_viewer: event accepted")
+        after, _ = v.wait_frame(after=f0 + 3, timeout=60)
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        require(after != before and after[:2] == b"\xff\xd8", "http_viewer: a new frame differs")
+        require(s.camera != cam0 and stats["zoom"] < cam0.zoom_factor,
+                "http_viewer: the session's camera moved")
+        later = sorted(v.loop_times[1:])  # the first pass builds the grid
+        require(len(later) > 0, "http_viewer: render-loop passes")
+        loop_ms = 1e3 * later[len(later) // 2]
+        phase("http_viewer", size=f"{dscene.width}x{dscene.height}", first_jpeg_bytes=len(first),
+              stream_fps=f"{5 / stream_s:.2f}", render_loop_median_ms=f"{loop_ms:.3f}",
+              first_pass_ms=f"{1e3 * v.loop_times[0]:.1f}",
+              frames=v.frames, loop_passes=len(v.loop_times), zoom=f"{stats['zoom']:.4f}",
+              grid_builds=s.grid_builds)
+    finally:
+        v.stop()
+    require(not any(t.is_alive() for t in v._threads), "http_viewer: threads stopped")
+    return 5 / stream_s, loop_ms
+
+
+def best_of(n, fn):
+    """(fewest seconds of n calls of fn() on the host clock, the last result)."""
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def native_loader_phase():
+    """[native_loader]: the port's C++ loader (built with g++ here) against
+    the Python loader, bitwise, on the dense and the seeded scene."""
+    from raytracingdiffusioncurves_torch.scene import native_loader, xml_loader
+
+    t0 = time.perf_counter()
+    require(native_loader.available(), "native loader builds")
+    build_s = time.perf_counter() - t0
+    times = {}
+    for label, xml in (("lady_bug", dense_scene_xml(0, DN_W, DN_H, "lady_bug")),
+                       ("seeded", seeded_scene_xml(0, SIZE, SIZE))):
+        py_s, py = best_of(3, lambda: xml_loader.load_scene_from_string(xml))
+        nat_s, nat = best_of(3, lambda: native_loader.load_scene_native(xml, is_text=True))
+        for name in ("vertices", "curve_map", "curve_index", "curve_connect",
+                     "curve_first_segment", "curve_segment_count"):
+            a, b = getattr(py, name), getattr(nat, name)
+            require(a.dtype == b.dtype and a.tobytes() == b.tobytes(), f"native {label}: {name}")
+        for name in ("color_left", "color_right", "blur", "weight", "weight_degree"):
+            for f in ("index", "u", "values"):
+                a, b = getattr(getattr(py, name), f), getattr(getattr(nat, name), f)
+                require(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                        f"native {label}: {name}.{f}")
+        times[label] = (py_s, nat_s)
+        phase(f"native_loader:{label}", segments=py.n_segments, python_s_best_of_3=f"{py_s:.5f}",
+              native_s_best_of_3=f"{nat_s:.5f}", tables="bitwise")
+    phase("native_loader", build_s=f"{build_s:.2f}", scenes=len(times), tables="bitwise")
+
+
+def session_phases():
+    """The interactive session's phases; returns the trace kernel's grid_*
+    numbers for the kernels JSON."""
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    net = rt.net_for_params(rt.load_params(str(WEIGHTS)))
+    dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, DN_W, DN_H)))
+    cfg = rt.RenderConfig(rays_per_pixel=DN_RPP)
+    out = grid_denoised_phase(dscene, cfg, net)
+    session_resume_phase(dscene, cfg, net)
+    fps, loop_ms = http_viewer_phase(dscene, cfg, net)
+    del dscene
+    out |= grid_dense_phase(net)
+    native_loader_phase()
+    cli = cli_phase()
+    out.update(session_cli_1024_frame_ms=cli["cli_1024"],
+               session_cli_denoised_frame_ms=cli["cli_denoised"],
+               session_http_stream_fps=fps, session_http_render_loop_ms=loop_ms)
+    return out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1166,6 +1852,7 @@ def main():
 
     conv_entry, denoised_trace = denoise_phases(smi)
     dense_trace = dense_phases()
+    session_trace = session_phases()
 
     print(json.dumps({"kernels": [{
         "name": "trace",
@@ -1187,7 +1874,7 @@ def main():
         "build_s": build_s,
         "instantiations": trace_info,
         "card": smi,
-    } | denoised_trace | dense_trace, conv_entry]}), flush=True)
+    } | denoised_trace | dense_trace | session_trace, conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

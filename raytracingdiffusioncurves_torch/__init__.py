@@ -8,7 +8,8 @@ curves, endcaps, portal curves, per-curve weight/weight-degree and
 per-pixel variable Gaussian blur, the temporal denoiser (analytic, or the
 shipped learned networks) and progressive refinement, on scenes from a few
 sub-segments to tens of thousands (per-cell candidate lists, capped and
-distance-ordered for dense scenes, with chunk lists behind them).  The trace and the
+distance-ordered for dense scenes, with chunk lists behind them; a
+world grid of them serves a moving camera).  The trace and the
 denoiser networks' 3x3 convolutions run in hand-written CUDA kernels
 (``csrc/trace.cu``, ``csrc/conv3x3.cu``, built with nvcc at first use);
 every entry point runs on the card unless the caller passes
@@ -25,6 +26,11 @@ Quick start::
     image, state = rtdc.render_frame(dev, rtdc.Camera(), state, cfg,
                                      denoiser=net)
     rtdc.save_image(image, "out.png")
+
+Interactive use: ``InteractiveSession`` (zoom, pan, screenshot; moving
+frames take their tables from a world grid), ``viewer_http.HttpViewer``
+(an MJPEG page), and the CLI ``python -m raytracingdiffusioncurves_torch
+scene.xml 128``.
 """
 
 from .config import Camera, RenderConfig
@@ -46,11 +52,20 @@ from .models.renderer import (
 )
 from .ops.denoise import spatial_bilateral, temporal_denoise
 from .ops.flow import add_translation_flow, add_zoom_flow, warp_by_flow, warp_separable, zero_flow
-from .ops.trace_cuda import build_cand_tables, seg_max_count
+from .ops.trace_cuda import (
+    WorldGrid,
+    build_cand_grid,
+    build_cand_tables,
+    grid_covers,
+    grid_tables,
+    narrow_cand_tables,
+    seg_max_count,
+)
 from .scene.device import DeviceScene, build_device_scene, from_jax_arrays
 from .scene.xml_loader import SceneTables, load_scene, load_scene_from_string
-from .utils.checkpoint import load_params
-from .utils.image import psnr, save_image, to_uint8
+from .utils.checkpoint import load_params, load_session, save_session
+from .utils.image import psnr, save_image, to_uint8, to_uint8_device
+from .viewer import InteractiveSession, run_viewer
 
 __all__ = [
     "Camera",
@@ -67,6 +82,16 @@ __all__ = [
     "from_jax_arrays",
     "build_cand_tables",
     "seg_max_count",
+    "narrow_cand_tables",
+    "WorldGrid",
+    "build_cand_grid",
+    "grid_tables",
+    "grid_covers",
+    "InteractiveSession",
+    "run_viewer",
+    "load_session",
+    "save_session",
+    "to_uint8_device",
     "trace_image",
     "render_frame",
     "render_frame_progressive",
@@ -88,4 +113,4 @@ __all__ = [
     "psnr",
 ]
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -150,6 +150,17 @@ def _tile_circles(
     return bcx, bcy, br
 
 
+def _origin_circles(circles, width, height, zoom, off_x, off_y, tiles_x, tiles_y, tile_w,
+                    tile_h, px_start, diffusion_save, device):
+    """The given (bcx, bcy, br) circles on ``device``, or the pixel tiles'."""
+    if circles is not None:
+        return tuple(torch.as_tensor(c, dtype=torch.float32, device=device) for c in circles)
+    return _tile_circles(
+        width, height, zoom, off_x, off_y, tiles_x, tiles_y, tile_w, tile_h,
+        px_start, diffusion_save, device=device,
+    )
+
+
 def _wedge_dirs(rpp: int, sw: int):
     """Wedge center unit vectors (as two float64 numpy arrays rounded to
     f32) + half-width cos/sin as f32-exact Python floats."""
@@ -269,6 +280,7 @@ def segment_ids(
     order: str = "id",
     chunk_cover: bool = False,
     key_guard: float | None = None,
+    circles=None,
 ):
     """Per-(tile, wedge) passing segment ids: the JAX package's
     ``_segment_ids`` in (T, W) layout.
@@ -286,7 +298,10 @@ def segment_ids(
     pass); a chunk with cmax < horizon has every hittable segment inside the
     list.  Requires s_pad % SEG_ALIGN == 0.  ``key_guard``: sine of the key
     guard (module docstring); the lower bounds then bound each segment's
-    ordering key.  None gives the JAX package's distance bounds."""
+    ordering key.  None gives the JAX package's distance bounds.
+    ``circles``: optional (bcx, bcy, br) (T,) float32 origin circles in
+    place of the pixel tiles' (camera and tile arguments then unused): the
+    world grid's cells (trace_cuda.build_cand_grid)."""
     if order not in ("id", "dist"):
         raise ValueError(f"order must be 'id' or 'dist', got {order!r}")
     f32 = torch.float32
@@ -294,11 +309,11 @@ def segment_ids(
     s_pad = consts.shape[0]
     if chunk_cover and s_pad % dev.SEG_ALIGN != 0:
         raise ValueError(f"chunk_cover needs s_pad % {dev.SEG_ALIGN} == 0, got {s_pad}")
-    bcx, bcy, br = _tile_circles(
-        width, height, zoom, off_x, off_y, tiles_x, tiles_y, tile_w,
-        tile_h, px_start, diffusion_save, device=device,
+    bcx, bcy, br = _origin_circles(
+        circles, width, height, zoom, off_x, off_y, tiles_x, tiles_y, tile_w,
+        tile_h, px_start, diffusion_save, device,
     )
-    n_tiles = tiles_x * tiles_y
+    n_tiles = bcx.shape[0]
 
     # --- segment bounding circles from the intersection constants ---
     p0x = consts[:, dev.CONST_P0X]
@@ -387,6 +402,7 @@ def chunk_candidates(
     keep: torch.Tensor | None = None,
     slack: torch.Tensor | None = None,
     hazard: torch.Tensor | None = None,
+    circles=None,
 ):
     """Chunk-granularity candidate lists (the JAX package's
     ``chunk_candidates``).
@@ -405,14 +421,14 @@ def chunk_candidates(
     of the wedge passes on the backward cone too, and a chunk's bound drops
     by its slack.  Without ``keep`` (chunk lists alone) a hazard chunk also
     gets bound 0 and is always walked; with it the cell's segment list holds
-    the hazards (bound 0, first)."""
+    the hazards (bound 0, first).  ``circles``: as in segment_ids."""
     device = chunk_bounds.device
     n_chunks = chunk_bounds.shape[0]
-    bcx, bcy, br = _tile_circles(
-        width, height, zoom, off_x, off_y, tiles_x, tiles_y, tile_w,
-        tile_h, px_start, diffusion_save, device=device,
+    bcx, bcy, br = _origin_circles(
+        circles, width, height, zoom, off_x, off_y, tiles_x, tiles_y, tile_w,
+        tile_h, px_start, diffusion_save, device,
     )
-    n_tiles = tiles_x * tiles_y
+    n_tiles = bcx.shape[0]
     wcx, wcy, cos_hw, sin_hw = _wedge_dirs(rpp, sw)
     n_wedges = wcx.shape[0]
     wcx = torch.from_numpy(wcx).to(device)[:, None, None]

@@ -11,7 +11,9 @@ goes through the kernel or raises.
 
 The block geometry (``_choose_block``, ``_grid_geom``) is the JAX
 package's, kept identical so the (tile, wedge) grid and the candidate
-tables compare 1:1 between the two packages.
+tables compare 1:1 between the two packages.  ``build_cand_tables`` builds
+one camera's tables; ``build_cand_grid`` the same tables for a world grid
+of cells, from which ``grid_tables`` selects a moving camera's.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import Camera, RenderConfig
@@ -189,9 +192,15 @@ def accel_kind(scene: dev.DeviceScene, config: RenderConfig, n_px: int | None = 
     w = scene.width
     n_px = scene.height * w if n_px is None else n_px
     _, _, _, n_wedges, _, _, _, n_tiles = _grid_geom(scene, config, w, n_px)
+    return _table_kind(scene, n_tiles, n_wedges)
+
+
+def _table_kind(scene: dev.DeviceScene, n_cells: int, n_wedges: int):
+    """accel_kind for tables of ``n_cells`` origin circles (pixel tiles or
+    world-grid cells) x ``n_wedges`` wedges."""
     if (
         cand_mod.use_candidates(scene.s_pad, n_wedges)
-        and _seg_table_bytes(scene.s_pad, n_tiles, n_wedges) <= _CAND_TABLE_BYTES_CAP
+        and _seg_table_bytes(scene.s_pad, n_cells, n_wedges) <= _CAND_TABLE_BYTES_CAP
     ):
         return "seg"
     if _n_chunks(scene.s_pad) > 1:
@@ -256,6 +265,13 @@ def build_cand_tables(
         config.rays_per_pixel, sw, tiles_x, tiles_y, TILE_W, tile_h, px_start,
         config.diffusion_curve_save,
     )
+    return _build_tables(scene, config, kind, grid, None, key_guard)
+
+
+def _build_tables(scene, config, kind, grid, circles, key_guard) -> CandTables:
+    """The tables of one kind: ``grid`` holds segment_ids' camera and tile
+    arguments, ``circles`` (or None: the pixel tiles') the origin circles."""
+    sw = grid[6]
     seg = (None, None, None, None)
     keep = None
     guard_sin = cand_mod.KEY_GUARD_SIN if key_guard else None
@@ -263,13 +279,13 @@ def build_cand_tables(
         cand_len = _cand_len_for(scene.s_pad)
         if scene.s_pad <= LEVEL_SLOTS:
             ids, counts, _, _, _ = cand_mod.segment_ids(
-                scene.seg_consts, *grid, cand_len=cand_len, order="id"
+                scene.seg_consts, *grid, cand_len=cand_len, order="id", circles=circles
             )
             return CandTables(ids, counts)
         overflows = cand_len < scene.s_pad
         ids, counts, lbs, horizon, cmax = cand_mod.segment_ids(
             scene.seg_consts, *grid, cand_len=cand_len, order="dist",
-            chunk_cover=overflows, key_guard=guard_sin,
+            chunk_cover=overflows, key_guard=guard_sin, circles=circles,
         )
         seg = (ids, counts, lbs, horizon)
         if not overflows:
@@ -283,7 +299,7 @@ def build_cand_tables(
             scene.seg_consts, config.rays_per_pixel, sw, guard_sin
         )
     chunk_ids, chunk_lbs, chunk_counts = cand_mod.chunk_candidates(
-        scene.chunk_bounds, *grid, keep=keep, slack=slack, hazard=hazard
+        scene.chunk_bounds, *grid, keep=keep, slack=slack, hazard=hazard, circles=circles
     )
     if key_guard and kind == "seg":
         # horizon 0: a hazard may have been dropped, and its key has no bound
@@ -313,6 +329,166 @@ def narrow_cand_tables(cand_tables: CandTables, gather_len: int) -> CandTables:
     if cand_tables.dist_ordered or cand_tables.ids.shape[-1] <= gl:
         return cand_tables
     return CandTables(cand_tables.ids[..., :gl].contiguous(), cand_tables.counts)
+
+
+# ---------------------------------------------------------------------------
+# world grid: tables for a moving camera
+# ---------------------------------------------------------------------------
+
+# The coverage circle of a grid cell is taken this share larger than the
+# exact largest tile circle, plus this many float32 steps of the grid box's
+# largest coordinate: tile radii and centres and cell centres are float32
+# roundings of the exact values, off by a few steps of the coordinates.
+_COVER_REL = 1e-3
+_COVER_ULPS = 64
+
+
+class WorldGrid(NamedTuple):
+    """Camera-independent candidate tables: the tables of build_cand_tables
+    built for a uniform world-space grid of cells instead of one camera's
+    pixel tiles (the JAX package's ``trace_pallas.WorldGrid``; the analogue
+    of the reference's world-space BVH, optixHello.cpp:764-830, built once
+    and never rebuilt while the view moves).
+
+    ``tables`` is a CandTables over (nx * ny cells, wedges), cell id
+    iy * nx + ix.  A cell's lists were built for its coverage circle: every
+    origin of a tile whose centre lies in the cell at a zoom up to
+    ``zoom_max``, so they hold a superset of any such tile's candidates.
+    grid_tables selects a camera's per-(tile, wedge) tables with one gather;
+    grid_covers tells whether the grid serves a camera.  ``gather_len``:
+    the largest count of slot-mode lists over the whole grid (the lists are
+    narrowed to it), else None."""
+
+    tables: CandTables
+    x0: float
+    y0: float
+    pitch_x: float
+    pitch_y: float
+    nx: int
+    ny: int
+    zoom_max: float
+    gather_len: int | None
+
+    @property
+    def nbytes(self) -> int:
+        return self.tables.nbytes
+
+
+def build_cand_grid(
+    scene: dev.DeviceScene,
+    config: RenderConfig,
+    x0: float,
+    y0: float,
+    x1: float,
+    y1: float,
+    zoom_max: float = 1.0,
+    key_guard: bool = True,
+) -> WorldGrid | None:
+    """Build the world grid whose cells cover tile centres in [x0, x1] x
+    [y0, y1] for cameras with zoom <= zoom_max (the JAX package's
+    build_cand_grid, with the key guard of build_cand_tables).  Cells are
+    one tile at zoom_max, TILE_W x tile_h pixels; the table kind is chosen
+    over the grid's cells, so a grid past the byte cap takes chunk lists
+    where one camera's tables are segment lists.  Returns None for scenes
+    that take the full sweep.  One host sync for slot-mode lists (the
+    largest count)."""
+    w, h = scene.width, scene.height
+    _, _, sw, n_wedges, tile_h, _, _, _ = _grid_geom(scene, config, w, h * w)
+    pitch_x = TILE_W * zoom_max
+    pitch_y = tile_h * zoom_max
+    nx = max(1, int(math.ceil((x1 - x0) / pitch_x)))
+    ny = max(1, int(math.ceil((y1 - y0) / pitch_y)))
+    kind = _table_kind(scene, nx * ny, n_wedges)
+    if kind is None:
+        return None
+    circles = _cell_circles(x0, y0, x1, y1, pitch_x, pitch_y, nx, ny, zoom_max, tile_h,
+                            scene.device)
+    grid = (
+        w, h, 1.0, 0.0, 0.0, config.rays_per_pixel, sw, nx, ny, TILE_W, tile_h, 0,
+        config.diffusion_curve_save,
+    )
+    tables = _build_tables(scene, config, kind, grid, circles, key_guard)
+    gather_len = seg_max_count(scene, tables)
+    if gather_len is not None:
+        tables = narrow_cand_tables(tables, gather_len)
+    return WorldGrid(tables, float(x0), float(y0), float(pitch_x), float(pitch_y), nx, ny,
+                     float(zoom_max), gather_len)
+
+
+def _cell_circles(x0, y0, x1, y1, pitch_x, pitch_y, nx, ny, zoom_max, tile_h, device):
+    """(bcx, bcy, br) (nx * ny,) float32: each cell's centre and coverage
+    radius, half the cell's diagonal plus the largest tile circle at
+    zoom_max (TILE_W x tile_h pixels, AA jitter included), with the float32
+    margin above."""
+    cx = x0 + (torch.arange(nx, dtype=torch.float32, device=device) + 0.5) * pitch_x
+    cy = y0 + (torch.arange(ny, dtype=torch.float32, device=device) + 0.5) * pitch_y
+    r_max = 0.5 * zoom_max * math.hypot(TILE_W, tile_h) * (1.0 + _COVER_REL)
+    extent = max(abs(x0), abs(x1), abs(y0), abs(y1), 1.0)
+    cover = (0.5 * math.hypot(pitch_x, pitch_y) + r_max
+             + _COVER_ULPS * float(np.spacing(np.float32(extent))))
+    bcx = cx[None, :].expand(ny, nx).reshape(-1)
+    bcy = cy[:, None].expand(ny, nx).reshape(-1)
+    return bcx, bcy, torch.full((nx * ny,), cover, dtype=torch.float32, device=device)
+
+
+def grid_cells(grid: WorldGrid, scene: dev.DeviceScene, camera: Camera, config: RenderConfig,
+               px_start: int = 0, n_px: int | None = None) -> torch.Tensor:
+    """(T,) int64 on the scene's device: the cell of each pixel tile of the
+    band, the one that holds the tile's centre (clamped into the grid)."""
+    w, h = scene.width, scene.height
+    n_px = h * w if n_px is None else n_px
+    _, _, _, _, tile_h, tiles_x, tiles_y, _ = _grid_geom(scene, config, w, n_px)
+    bcx, bcy, _ = cand_mod._tile_circles(
+        w, h, camera.zoom_factor, camera.offset_x, camera.offset_y, tiles_x, tiles_y,
+        TILE_W, tile_h, px_start, config.diffusion_curve_save, device=scene.device,
+    )
+    ix = torch.clamp(torch.floor((bcx - grid.x0) / grid.pitch_x), 0, grid.nx - 1)
+    iy = torch.clamp(torch.floor((bcy - grid.y0) / grid.pitch_y), 0, grid.ny - 1)
+    return (iy * grid.nx + ix).to(torch.int64)
+
+
+def grid_tables(
+    grid: WorldGrid,
+    scene: dev.DeviceScene,
+    camera: Camera,
+    config: RenderConfig,
+    px_start: int = 0,
+    n_px: int | None = None,
+) -> CandTables:
+    """This camera's per-(tile, wedge) tables selected from the world grid:
+    one index_select per table field by cell id, enqueued with no host sync.
+    The scene circle does not depend on the camera and is shared.  Pass the
+    result to trace_sums_flat with ``gather_len = grid.gather_len``.  The
+    caller owns validity (grid_covers), and a band must start on a tile
+    row."""
+    cid = grid_cells(grid, scene, camera, config, px_start, n_px)
+    t = grid.tables
+    picked = [None if f is None else f.index_select(0, cid) for f in t[:-1]]
+    return CandTables(*picked, circle=t.circle)
+
+
+def grid_covers(
+    grid: WorldGrid,
+    scene: dev.DeviceScene,
+    camera: Camera,
+    config: RenderConfig,
+) -> bool:
+    """Whether the grid serves this camera: the zoom within zoom_max and
+    every tile centre inside the grid box.  Computed on the host from the
+    camera's floats (the tile circles in CPU float32, as the card computes
+    them), so it never waits for the card."""
+    if float(camera.zoom_factor) > grid.zoom_max * (1 + 1e-6):
+        return False
+    w, h = scene.width, scene.height
+    _, _, _, _, tile_h, tiles_x, tiles_y, _ = _grid_geom(scene, config, w, h * w)
+    bcx, bcy, _ = cand_mod._tile_circles(
+        w, h, float(camera.zoom_factor), float(camera.offset_x), float(camera.offset_y),
+        tiles_x, tiles_y, TILE_W, tile_h, 0, config.diffusion_curve_save, device="cpu",
+    )
+    return bool(
+        (bcx.min() >= grid.x0) & (bcx.max() <= grid.x0 + grid.nx * grid.pitch_x)
+        & (bcy.min() >= grid.y0) & (bcy.max() <= grid.y0 + grid.ny * grid.pitch_y)
+    )
 
 
 def trace_sums_flat(

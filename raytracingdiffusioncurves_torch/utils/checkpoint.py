@@ -1,18 +1,32 @@
-"""Reader of the shipped denoiser checkpoints (``weights/*.msgpack``).
+"""Checkpoints: the shipped denoiser weights and session files.
 
-The files were written by flax's ``serialization.msgpack_serialize``: a
-MessagePack map of maps whose leaves are extension type 1, an ndarray packed
-as the MessagePack array ``(shape, dtype name, bytes)``.  This module reads
-the forms such files hold itself (short maps, arrays and strings, unsigned
-ints, ``bin`` and the ndarray extension) and raises on any other tag, so the
-port needs neither ``flax`` nor a ``msgpack`` package.
+The weights (``weights/*.msgpack``) were written by flax's
+``serialization.msgpack_serialize``: a MessagePack map of maps whose leaves
+are extension type 1, an ndarray packed as the MessagePack array ``(shape,
+dtype name, bytes)``.  This module reads the forms such files hold itself
+(short maps, arrays and strings, unsigned ints, ``bin`` and the ndarray
+extension) and raises on any other tag, so the port needs neither ``flax``
+nor a ``msgpack`` package.
+
+A session (``save_session`` / ``load_session``) is the JAX package's
+``.npz`` layout, so either package resumes the other's: ``version`` 1, the
+temporal state (``prev_image``, ``flow``, ``frame``) and the camera as
+float64; the optional ``denoiser`` entry the JAX package writes (flax
+MessagePack bytes) is read with the reader above.  The reference
+keeps no state beyond screenshots (SURVEY.md section 5); the RNG is
+stateless, so resuming at frame N reproduces frame N bit for bit.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
+import torch
+
+from ..config import Camera
+from ..models.renderer import FrameState
 
 _EXT_NDARRAY = 1
 
@@ -78,8 +92,62 @@ def load_params(path: str):
     (3, 3, Cin, Cout) and ``bias`` (Cout,), float32).  Pair the result with
     ``models.denoiser.net_for_params`` to get the matching module."""
     with open(path, "rb") as f:
-        reader = _Reader(f.read())
+        data = f.read()
+    try:
+        return parse_params(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def parse_params(data: bytes):
+    """The tree of a checkpoint's MessagePack bytes (load_params' format)."""
+    reader = _Reader(data)
     tree = reader.value()
     if reader.pos != len(reader.data):
-        raise ValueError(f"{path}: {len(reader.data) - reader.pos} bytes after the MessagePack value")
+        raise ValueError(f"{len(reader.data) - reader.pos} bytes after the MessagePack value")
     return tree
+
+
+_FORMAT_VERSION = 1
+
+
+def save_session(path: str, state: FrameState, camera: Camera) -> str:
+    """Write a session: ``state``'s temporal history and frame counter and
+    the camera.  The file is written beside ``path`` and moved over it."""
+    payload = {
+        "version": np.int64(_FORMAT_VERSION),
+        "prev_image": state.prev_image.detach().cpu().numpy(),
+        "flow": state.flow.detach().cpu().numpy(),
+        "frame": np.asarray(np.int32(state.frame)),
+        "camera": np.asarray([camera.zoom_factor, camera.offset_x, camera.offset_y], np.float64),
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+    os.replace(tmp, path)
+    return path
+
+
+def load_session(path: str, device=None):
+    """Read a session written by either package.  Returns (FrameState on
+    ``device`` (None = CUDA), Camera, denoiser params as load_params returns
+    them, or None)."""
+    from .devices import resolve_device
+
+    dev = resolve_device(device)
+    with np.load(path, allow_pickle=False) as z:
+        if int(z["version"]) != _FORMAT_VERSION:
+            raise ValueError(f"unsupported checkpoint version {int(z['version'])}")
+        flow_np = np.asarray(z["flow"], np.float32)
+        prev = torch.from_numpy(np.asarray(z["prev_image"], np.float32).copy()).to(dev)
+        flow = torch.from_numpy(flow_np.copy()).to(dev)
+        state = FrameState(
+            prev_image=prev,
+            flow=flow,
+            frame=int(z["frame"]),
+            # an all-zero flow is known zero: the frame skips the warp
+            zero_flow=flow if not flow_np.any() else None,
+        )
+        cam = Camera(*[float(v) for v in z["camera"]])
+        params = parse_params(z["denoiser"].tobytes()) if "denoiser" in z.files else None
+    return state, cam, params

@@ -569,3 +569,75 @@ def test_denoised_frame_on_the_card(cuda):
         img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
     assert cc.LAUNCHES == 18
     assert img.shape == (size, size, 4) and torch.isfinite(img).all() and st.flow_is_zero
+
+
+# ---------------------------------------------------------------------------
+# the world grid, the session and the viewer's quantization on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,rpp", [("seeded", 16), ("lady_bug", 64)])
+@pytest.mark.parametrize("cam", [(0.75, 0.0, 0.0), (1.0, 37.5, -21.25)], ids=["zoomed", "panned"])
+def test_grid_tables_equal_full_sweep(cuda, name, rpp, cam):
+    """The kernel on tables selected from a world grid (superset lists:
+    slot mode on the seeded scene, distance order with chunk lists on the
+    lady_bug class) == its full sweep == the camera's own tables, bitwise."""
+    w, h = 256, 192
+    if name == "seeded":
+        dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, w, h)),
+                                   device=cuda)
+    else:
+        dt = _dense_case(cuda, name, w, h)
+    cfg = rt.RenderConfig(rays_per_pixel=rpp, use_denoiser=False)
+    grid = rt.build_cand_grid(dt, cfg, -1.5 * 0.75 * w, -1.5 * 0.75 * h, 1.5 * 0.75 * w,
+                              1.5 * 0.75 * h, zoom_max=1.5)
+    camera = rt.Camera(*cam)
+    assert rt.grid_covers(grid, dt, camera, cfg)
+    assert grid.tables.dist_ordered == (name != "seeded")
+    n_px = w * h
+    picked = rt.grid_tables(grid, dt, camera, cfg)
+    own = rt.build_cand_tables(dt, camera, cfg)
+    tc.reset_launch_count()
+    a = tc.trace_sums_flat(dt, camera, cfg, 2, 0, n_px, picked, grid.gather_len)
+    b = tc.trace_sums_flat(dt, camera, cfg, 2, 0, n_px, None)
+    c = tc.trace_sums_flat(dt, camera, cfg, 2, 0, n_px, own, rt.seg_max_count(dt, own))
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES == 3
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert float(a[1].sum()) > 0.0
+
+
+def test_to_uint8_device_equals_to_uint8(cuda):
+    from raytracingdiffusioncurves_torch.utils.image import to_uint8, to_uint8_device
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1088, 1920, 4), generator=gen, device=cuda) * 0.7 + 0.5
+    x[0, 0, 0], x[1, 1, 1], x[2, 2, 2] = float("nan"), float("inf"), -float("inf")
+    for flip in (True, False):
+        q = to_uint8_device(x, flip_vertical=flip)
+        assert q.device.type == "cuda" and q.dtype == torch.uint8
+        assert (q.cpu().numpy() == to_uint8(x.cpu().numpy(), flip_vertical=flip)).all()
+
+
+def test_moving_session_frame_enqueues_without_a_host_sync(cuda):
+    """A session's moving frame (the event, grid_covers, grid_tables, the
+    frame with the UNet) queues on the card without waiting for it."""
+    w, h = 256, 192
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, w, h)), device=cuda)
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device=cuda)
+    s = rt.InteractiveSession(dt, rt.RenderConfig(rays_per_pixel=8), denoiser=net)
+    s.render()  # builds the grid (a host sync: the largest count)
+    s.render()  # resting: builds the camera's own tables
+    grid = s.grid
+    tc.reset_launch_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s.scroll(1.0)
+        s.drag(12.0, -7.0)
+        img = s.render(block=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert s.grid is grid and s.grid_builds == 1 and tc.LAUNCHES == 1
+    assert img.shape == (h, w, 4) and torch.isfinite(img).all()
