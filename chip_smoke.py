@@ -30,7 +30,24 @@ paths through the public entry points, checking the images:
   session that rebuilds the camera's tables on each move; a session saved
   and resumed ([session_resume]); the MJPEG viewer on a local port
   ([http_viewer]); the native scene loader against the Python one
-  ([native_loader]); the CLI in a subprocess ([cli:*]).
+  ([native_loader]); the CLI in a subprocess ([cli:*]);
+* the denoiser trainer: a dataset from three generated scenes at 192^2
+  through train_denoiser.generate (three trace launches per example,
+  [train:gen]; the trace kernel against its plain version at gen's launch
+  shapes, [train:gen_parity:*]); the train step's convolution against the
+  plain version on the UNet's nine layers ([train:conv]); the UNet at the
+  shipped width, batch 32, crop 64: 30 steps on one batch under 0.7x the
+  first loss, ms per step, kernels per step ([train:step]); train() for
+  300 steps with validation through the conv kernel ([train:fit]); the
+  written checkpoint through load_params / net_for_params / apply_denoiser
+  at 1920x1088, kernel vs plain route ([train:checkpoint]);
+* row-band rendering: two gloo ranks on cuda:0 (parallel/sharded.py; two
+  ranks on one card, no scaling figure): the gloo collectives on CUDA
+  tensors ([sharded:gloo_cuda]), the denoiser-off frame with per-band
+  tables, a progressive pass and the dense frame with the shipped UNet,
+  each bitwise equal to one process ([sharded:frame], [sharded:progressive],
+  [sharded:dense]), and the data-parallel train step (2 x 16) against the
+  one-process step on the 32 ([sharded:train_step]).
 
 After the build, [trace_kernel:*] prints each instantiation of the trace
 kernel as built: registers, local (spilled) bytes and shared memory per
@@ -51,9 +68,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -64,7 +84,7 @@ if not torch.cuda.is_available():
 
 import raytracingdiffusioncurves_torch as rt  # noqa: E402
 from raytracingdiffusioncurves_torch.cli import shipped_weights  # noqa: E402
-from raytracingdiffusioncurves_torch.models import denoiser, renderer  # noqa: E402
+from raytracingdiffusioncurves_torch.models import denoiser, renderer, train_denoiser  # noqa: E402
 from raytracingdiffusioncurves_torch.ops import (  # noqa: E402
     _build,
     blur,
@@ -1714,6 +1734,399 @@ def session_phases():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the denoiser trainer
+# ---------------------------------------------------------------------------
+
+# The trainer's data: three generated scenes at the JAX trainer's size, one
+# camera per noise level each, 256 rays per pixel for the targets; a held-out
+# scene for validation.  Training at the JAX defaults (train_denoiser.train)
+# on the shipped UNet's architecture.
+TRAIN_SIZE, TRAIN_CAMS, TRAIN_VAL_CAMS = 192, 5, 3
+TRAIN_BATCH, TRAIN_CROP, TRAIN_LR, TRAIN_BASE = 32, 64, 2e-3, 24
+TRAIN_STEPS, FIXED_STEPS, TIMED_STEPS = 300, 30, 20
+TRAIN_DIR = SMOKE_DIR / "train"
+
+
+def train_gen_phase():
+    """[train:gen] and [train:gen_parity]: the dataset through
+    train_denoiser.generate on the card (three trace launches per example),
+    read back; the trace kernel against its plain version at the trainer's
+    launch shapes.  Returns (dataset path, validation path, numbers)."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)  # generate resumes from shards
+    TRAIN_DIR.mkdir(parents=True)
+    s = TRAIN_SIZE
+    xmls = {"seeded1": seeded_scene_xml(1, s, s), "seeded2": seeded_scene_xml(2, s, s),
+            "lady_bug": dense_scene_xml(0, s, s, "lady_bug"), "val_seeded3": seeded_scene_xml(3, s, s)}
+    paths = {}
+    for name, xml in xmls.items():
+        paths[name] = TRAIN_DIR / f"{name}.xml"
+        paths[name].write_text(xml)
+    scenes = [str(paths[n]) for n in ("seeded1", "seeded2", "lady_bug")]
+    data, val = str(TRAIN_DIR / "data.npz"), str(TRAIN_DIR / "val.npz")
+    n_ex = len(scenes) * TRAIN_CAMS
+    trace_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    train_denoiser.generate(scenes, data, size=s, cams_per_scene=TRAIN_CAMS, seed=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = trace_cuda.LAUNCHES
+    require(launches == 3 * n_ex, f"train:gen: trace launches {launches} != {3 * n_ex}")
+    train_denoiser.generate([str(paths["val_seeded3"])], val, size=s,
+                            cams_per_scene=TRAIN_VAL_CAMS, seed=1)
+    with np.load(data) as z, np.load(val) as zv:
+        for k, c in (("noisy", 3), ("warped_prev", 3), ("aux", 2), ("target", 3)):
+            require(z[k].shape == (n_ex, s, s, c) and z[k].dtype == np.float16
+                    and zv[k].shape == (TRAIN_VAL_CAMS, s, s, c), f"train:gen: {k} {z[k].shape}")
+            require(bool(np.isfinite(z[k]).all()), f"train:gen: finite {k}")
+        spread = float(z["target"].astype(np.float32).std())
+        require(spread > 0.01, f"train:gen: targets spread {spread}")
+        noise = sorted(set(np.round(z["aux"][:, 0, 0, 1].astype(np.float64), 3).tolist()))
+    phase("train:gen", scenes=len(scenes), examples=n_ex, size=f"{s}x{s}",
+          rpp_levels=list(train_denoiser.RPP_LEVELS), rpp_target=256, trace_launches=launches,
+          seconds=f"{gen_s:.3f}", s_per_example=f"{gen_s / n_ex:.4f}",
+          val_examples=TRAIN_VAL_CAMS, noise_channel=noise, dtype="float16",
+          target_std=f"{spread:.4f}")
+
+    # the trace kernel as generate launches it: whole 192^2 frame, the
+    # in-frame tables, the first camera of the first scene
+    errs = []
+    for name, rpp in (("seeded1", 4), ("seeded1", 256), ("lady_bug", 16)):
+        dev = rt.build_device_scene(rt.load_scene(str(paths[name])).with_size(s, s),
+                                    flatten_subdivisions=8)
+        rng = np.random.default_rng([0, 0, 0])
+        zoom = float(np.exp(rng.uniform(np.log(0.3), np.log(2.0))))
+        off = rng.uniform(-100, 100, 2)
+        cam = rt.Camera(zoom, float(off[0]), float(off[1]))
+        cfg = rt.RenderConfig(rays_per_pixel=rpp, use_blur=False, use_denoiser=False, seed=0)
+        tables = rt.build_cand_tables(dev, cam, cfg)
+        kern = trace_cuda.trace_sums_flat(dev, cam, cfg, 0, 0, s * s, tables)
+        full = trace_cuda.trace_sums_flat(dev, cam, cfg, 0, 0, s * s, None)
+        torch.cuda.synchronize()
+        for a, b in zip(kern, full):
+            require(torch.equal(a, b), f"train:gen_parity {name}: kernel with lists != full sweep")
+        plain = trace_cuda.trace_sums_plain(dev, cam, cfg, 0, 0, s * s, tables)
+        err = parity(normalized(plain, s, s, cfg), normalized(kern, s, s, cfg))
+        require(float(kern[1].sum()) > 0.0, f"train:gen_parity {name}: the trace has weight")
+        errs.append(err)
+        phase(f"train:gen_parity:{name}_rpp{rpp}", rays=s * s * rpp,
+              kind=trace_cuda.accel_kind(dev, cfg), max_abs_err=f"{err:.3e}",
+              lists_eq_full="bitwise")
+    return data, val, dict(train_gen_launches=launches, train_gen_s_per_example=gen_s / n_ex,
+                           train_gen_max_abs_err=max(errs))
+
+
+def unet_train_conv_parity(net):
+    """[train:conv]: conv3x3_train (the train step's convolution, F.conv2d)
+    against conv3x3_plain image by image, on the UNet's nine layers at the
+    crop size and batch, seeded inputs, under the conv bar.  ``net``: the
+    shipped UNet (the training architecture), whose biases give the bar its
+    |b| term as in [conv_parity]; a fresh model's zero biases leave no room
+    for a float32 sum taken in another order where y is near 0."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+    rows = []
+    for name, h, w, cins, cout, stride, relu, ups in unet_layers(TRAIN_CROP, TRAIN_CROP, TRAIN_BASE):
+        layer = getattr(net, name)
+        ks = [k.contiguous() for k in torch.split(layer.kernel.detach().to(bf), cins, dim=2)]
+        b = layer.bias.detach().to(bf)
+        xs = [torch.randn((TRAIN_BATCH, h >> int(u), w >> int(u), c), generator=gen,
+                          device="cuda").to(bf) for c, u in zip(cins, ups)]
+        with torch.no_grad():
+            got = denoiser.conv3x3_train(xs, ks, b, stride, relu, ups)
+            ref = torch.stack([conv_cuda.conv3x3_plain([x[i] for x in xs], ks, b, stride, relu, ups)
+                               for i in range(TRAIN_BATCH)])
+        require(got.shape == ref.shape, f"train:conv {name}: shape {tuple(got.shape)}")
+        rows.append((name,) + conv_close(ref, got, b))
+    phase("train:conv", layers=len(rows), batch=TRAIN_BATCH, size=f"{TRAIN_CROP}x{TRAIN_CROP}",
+          min_bitwise_equal=f"{min(r[1] for r in rows):.6f}",
+          max_share_of_rounding_bar=f"{max(r[2] for r in rows):.3f}",
+          bar="equal>=0.99,diff<=2^-7*(2|y|+|b|)")
+
+
+def train_step_profile(model, opt, sched, batch, step_ms):
+    """Kernels per train step and the card's busy time in it, from
+    torch.profiler over three steps ("not measured" where the trace shows
+    no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            denoiser.train_step(model, opt, sched, batch)
+        torch.cuda.synchronize()
+    # the kernels' own rows (the operators' rows repeat their kernels' time)
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+              and getattr(e, "self_device_time_total", 0) > 0]
+    if not events:
+        return {"kernels_per_step": "not measured", "device_busy_ms_per_step": "not measured"}
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
+    return {"kernels_per_step": sum(e.count for e in events) / 3,
+            "device_busy_ms_per_step": busy_ms, "device_busy_share": busy_ms / step_ms}
+
+
+def train_phases():
+    """[train:gen], [train:gen_parity], [train:step], [train:conv],
+    [train:fit], [train:checkpoint].  Returns the numbers for the kernels
+    JSON: (trace entry additions, conv entry additions)."""
+    data, val, trace_out = train_gen_phase()
+
+    # --- the train step at the shipped width, on one fixed batch ---
+    arrays = dict(np.load(data))
+    batch = train_denoiser._crop_batch(arrays, np.random.default_rng(0), TRAIN_BATCH, TRAIN_CROP)
+    np.savez(TRAIN_DIR / "batch.npz", **{k: v.cpu().numpy() for k, v in batch.items()})
+    model, sched, opt = denoiser.create_train_state(
+        torch.Generator().manual_seed(0), TRAIN_CROP, TRAIN_CROP, TRAIN_LR, arch="unet",
+        base=TRAIN_BASE)
+    unet_train_conv_parity(rt.net_for_params(rt.load_params(str(WEIGHTS))))
+    with torch.no_grad():
+        first = float(denoiser.loss_fn(model, batch))
+    trace_cuda.reset_launch_count()
+    conv_cuda.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FIXED_STEPS):
+        loss = denoiser.train_step(model, opt, sched, batch)
+    last = float(loss)
+    require(last < 0.7 * first, f"train:step: loss {last} not under 0.7x the first {first}")
+    require(trace_cuda.LAUNCHES == 0 and conv_cuda.LAUNCHES == 0,
+            "train:step: the train step launches no kernel of the repo (F.conv2d)")
+    step_ms, _ = cuda_ms(lambda: denoiser.train_step(model, opt, sched, batch), TIMED_STEPS)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        denoiser.train_step(model, opt, sched, batch)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    torch.cuda.synchronize()
+    prof = train_step_profile(model, opt, sched, batch, step_ms)
+    phase("train:step", arch="unet", base=TRAIN_BASE, batch=TRAIN_BATCH, crop=TRAIN_CROP,
+          lr=TRAIN_LR, params=sum(p.numel() for p in model.parameters()),
+          first_loss=f"{first:.5f}", loss_after_30=f"{last:.5f}", ratio=f"{last / first:.4f}",
+          bar="<0.7", ms_per_step=f"{step_ms:.3f}", host_enqueue_ms_per_step=f"{enqueue_ms:.3f}",
+          peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}", **prof)
+    del model, opt, sched
+
+    # --- train() on the dataset: crops, EMA, validation through the kernel ---
+    ckpt = str(TRAIN_DIR / "denoiser.msgpack")
+    conv_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    res = train_denoiser.train(data, val, ckpt, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                               crop=TRAIN_CROP, lr=TRAIN_LR, seed=0, arch="unet",
+                               base=TRAIN_BASE)
+    fit_s = time.perf_counter() - t0
+    n_val = 1 + TRAIN_STEPS // 250 + (1 if (TRAIN_STEPS - 1) % 250 else 0)
+    want_convs = 9 * TRAIN_VAL_CAMS * 2 * n_val
+    val_launches = conv_cuda.LAUNCHES
+    require(val_launches == want_convs,
+            f"train:fit: validation conv launches {val_launches} != {want_convs}")
+    require(np.isfinite(res["loss"]) and np.isfinite(res["best_val_psnr"]), f"train:fit {res}")
+    phase("train:fit", steps=TRAIN_STEPS, seconds=f"{fit_s:.2f}",
+          ms_per_step=f"{res['ms_per_step']:.3f}", loss=f"{res['loss']:.5f}",
+          best_val_psnr=f"{res['best_val_psnr']:.3f}", noisy_psnr=f"{res['noisy_psnr']:.3f}",
+          validations=n_val, val_conv_launches=val_launches)
+
+    # --- the trained checkpoint through the inference module on the
+    # 1920x1088 denoised frame: kernel route vs plain route ---
+    params = rt.load_params(ckpt)
+    net = rt.net_for_params(params)
+    require(isinstance(net, rt.UNetDenoiser) and net.base == TRAIN_BASE, "trained UNet, base 24")
+    dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, DN_W, DN_H)))
+    cfg = rt.RenderConfig(rays_per_pixel=DN_RPP)
+    prev, _ = rt.trace_image(dscene, rt.Camera(), cfg, 0)
+    raw, bmap = rt.trace_image(dscene, rt.Camera(), cfg, 1)
+    args = (net, raw, prev, bmap, 1.0, denoiser.noise_level(DN_RPP), 1)
+    conv_cuda.reset_launch_count()
+    a = denoiser._apply_denoiser(*args, conv_cuda.conv3x3)
+    require(conv_cuda.LAUNCHES == 9, f"train:checkpoint: conv launches {conv_cuda.LAUNCHES}")
+    b = denoiser._apply_denoiser(*args, conv_cuda.conv3x3_plain)
+    d = (a - b).abs()
+    dmax, dmean, dbig = float(d.max()), float(d.mean()), float((d > 5e-3).float().mean())
+    require(bool(torch.isfinite(a).all()) and dmax < 1e-2 and dbig < 1e-4 and dmean < 1e-4,
+            f"trained checkpoint, kernel route vs plain route: max {dmax} mean {dmean} "
+            f"share above 5e-3 {dbig}")
+    phase("train:checkpoint", path=pathlib.Path(ckpt).name, bytes=pathlib.Path(ckpt).stat().st_size,
+          size=f"{DN_W}x{DN_H}", max_abs_diff=f"{dmax:.3e}", mean_abs_diff=f"{dmean:.3e}",
+          share_above_5e3=f"{dbig:.3e}", bar="max<1e-2,share(>5e-3)<1e-4,mean<1e-4")
+    conv_out = dict(train_step_ms=step_ms, train_fit_ms_per_step=res["ms_per_step"],
+                    train_val_launches=val_launches, train_checkpoint_max_abs_diff=dmax,
+                    train_val_psnr=res["best_val_psnr"], train_noisy_psnr=res["noisy_psnr"])
+    return trace_out, conv_out
+
+
+# ---------------------------------------------------------------------------
+# row-band rendering on two ranks
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS, SHARDED_FRAMES = 2, 5
+
+
+def main_path_config():
+    return rt.RenderConfig(rays_per_pixel=RPP, rays_per_block=2048, use_aa=True,
+                           use_blur=True, exact_silhouettes=True, use_denoiser=False)
+
+
+def sharded_rank(rank, world):
+    """One gloo rank on cuda:0 (the [sharded:*] phases): the denoiser-off
+    frame with per-band tables, a progressive pass, a dense frame, the
+    data-parallel train step.  Returns host copies of its bands and numbers."""
+    from raytracingdiffusioncurves_torch.parallel import sharded
+
+    torch.cuda.set_device(0)
+    mesh = sharded.make_mesh(world)
+    out = {}
+    cam = rt.Camera()
+    # gloo on CUDA tensors: the collectives the sharded path uses
+    probe = torch.full((4,), float(rank), device="cuda")
+    gathered = sharded.gather_rows(mesh, probe)
+    count = torch.tensor([rank + 3], dtype=torch.int64, device="cuda")
+    torch.distributed.all_reduce(count, op=torch.distributed.ReduceOp.MAX)
+    require(gathered.device.type == "cuda" and gathered.tolist() == [0.0] * 4 + [1.0] * 4
+            and int(count) == world + 2, "gloo collectives on CUDA tensors")
+
+    dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, SIZE, SIZE)))
+    cfg = main_path_config()
+    tables = sharded.build_cand_tables_sharded(mesh, dscene, cam, cfg)
+    gl = sharded.seg_max_count_sharded(mesh, dscene, tables)
+    tables = trace_cuda.narrow_cand_tables(tables, gl)
+    state = rt.init_frame_state(SIZE, SIZE)
+    trace_cuda.reset_launch_count()
+    frames = []
+    for _ in range(2):
+        img, state = sharded.render_frame_sharded(mesh, dscene, cam, state, cfg,
+                                                  cand_tables=tables, gather_len=gl)
+        frames.append(img.cpu().numpy())
+    launches = trace_cuda.LAUNCHES
+    holder = {"state": state}
+
+    def step():
+        _, holder["state"] = sharded.render_frame_sharded(mesh, dscene, cam, holder["state"], cfg,
+                                                          cand_tables=tables, gather_len=gl)
+
+    frame_ms, _ = timed_frames(step, SHARDED_FRAMES)
+    out["off"] = dict(frames=frames, launches=launches, gather_len=gl, frame_ms=frame_ms)
+
+    pstate = rt.init_frame_state(SIZE, SIZE)
+    prog = rt.init_progressive_state(SIZE, SIZE // world)
+    passes = []
+    for reset in (True, False):
+        img, pstate, prog = sharded.render_frame_progressive_sharded(
+            mesh, dscene, cam, pstate, prog, cfg, reset, cand_tables=tables, gather_len=gl)
+        passes.append(img.cpu().numpy())
+    out["progressive"] = passes
+    del dscene, tables
+
+    net = rt.net_for_params(rt.load_params(str(WEIGHTS)))
+    dense = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, DN_W, DN_H, "lady_bug")))
+    dcfg = rt.RenderConfig(rays_per_pixel=DENSE_RPP)
+    dtables = sharded.build_cand_tables_sharded(mesh, dense, cam, dcfg)
+    trace_cuda.reset_launch_count()
+    conv_cuda.reset_launch_count()
+    img, _ = sharded.render_frame_sharded(mesh, dense, cam, rt.init_frame_state(DN_W, DN_H), dcfg,
+                                          denoiser=net, cand_tables=dtables)
+    out["dense"] = dict(image=img.cpu().numpy(), launches=trace_cuda.LAUNCHES,
+                        conv_launches=conv_cuda.LAUNCHES)
+    del dense, dtables
+
+    z = np.load(TRAIN_DIR / "batch.npz")
+    half = TRAIN_BATCH // world
+    batch = {k: torch.from_numpy(z[k][rank * half : (rank + 1) * half]).cuda() for k in z.files}
+    model, sched, opt = denoiser.create_train_state(
+        torch.Generator().manual_seed(0), TRAIN_CROP, TRAIN_CROP, TRAIN_LR, arch="unet",
+        base=TRAIN_BASE)
+    loss = denoiser.train_step(model, opt, sched, batch, group=sharded.group(mesh))
+    out["train"] = dict(loss=float(loss), grads={n: p.grad.cpu().numpy()
+                                                for n, p in model.named_parameters()})
+    return out
+
+
+def sharded_phases():
+    """[sharded:*]: two gloo ranks on one card against one process: the
+    denoiser-off frame (1024^2 x 128 rpp, per-band tables), a progressive
+    pass and the dense frame with the shipped UNet bitwise; the data-parallel
+    train step (2 x 16) against the one-process step on the 32.  Two ranks
+    share one card here: their times are no scaling figure."""
+    from raytracingdiffusioncurves_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    ranks = sharded.spawn_ranks(sharded_rank, SHARDED_RANKS, backend="gloo", timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    phase("sharded:gloo_cuda", ranks=SHARDED_RANKS, device="cuda:0", backend="gloo",
+          all_gather="cuda tensors", all_reduce="cuda tensors", copies="none",
+          seconds=f"{ranks_s:.2f}")
+    half = SIZE // SHARDED_RANKS
+
+    # one process, the same frames
+    dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, SIZE, SIZE)))
+    cfg = main_path_config()
+    cam = rt.Camera()
+    tables = rt.build_cand_tables(dscene, cam, cfg)
+    gl = rt.seg_max_count(dscene, tables)
+    tables = trace_cuda.narrow_cand_tables(tables, gl)
+    state = rt.init_frame_state(SIZE, SIZE)
+    for i in range(2):
+        img, state = rt.render_frame(dscene, cam, state, cfg, cand_tables=tables, gather_len=gl)
+        whole = img.cpu().numpy()
+        for r, res in enumerate(ranks):
+            require(np.array_equal(res["off"]["frames"][i], whole[r * half : (r + 1) * half]),
+                    f"sharded: frame {i}, rank {r}'s band != one process")
+    require(all(res["off"]["launches"] == 2 for res in ranks), "sharded: one trace launch per frame")
+    phase("sharded:frame", size=f"{SIZE}x{SIZE}", rpp=RPP, frames=2, bands=SHARDED_RANKS,
+          band_rows=half, gather_len=[res["off"]["gather_len"] for res in ranks],
+          one_process_gather_len=gl, equal="bitwise",
+          trace_launches_per_rank=[res["off"]["launches"] for res in ranks],
+          ms_per_frame_two_ranks_one_card=f"{ranks[0]['off']['frame_ms']:.3f}")
+
+    pstate = rt.init_frame_state(SIZE, SIZE)
+    prog = rt.init_progressive_state(SIZE, SIZE)
+    for i, reset in enumerate((True, False)):
+        img, pstate, prog = rt.render_frame_progressive(dscene, cam, pstate, prog, cfg, reset,
+                                                        cand_tables=tables, gather_len=gl)
+        whole = img.cpu().numpy()
+        for r, res in enumerate(ranks):
+            require(np.array_equal(res["progressive"][i], whole[r * half : (r + 1) * half]),
+                    f"sharded: progressive pass {i}, rank {r}'s band != one process")
+    phase("sharded:progressive", passes=2, equal="bitwise")
+    del dscene, tables
+
+    net = rt.net_for_params(rt.load_params(str(WEIGHTS)))
+    dense = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, DN_W, DN_H, "lady_bug")))
+    dcfg = rt.RenderConfig(rays_per_pixel=DENSE_RPP)
+    img, _ = rt.render_frame(dense, cam, rt.init_frame_state(DN_W, DN_H), dcfg, denoiser=net,
+                             cand_tables=rt.build_cand_tables(dense, cam, dcfg))
+    whole = img.cpu().numpy()
+    dh = DN_H // SHARDED_RANKS
+    for r, res in enumerate(ranks):
+        require(np.array_equal(res["dense"]["image"], whole[r * dh : (r + 1) * dh]),
+                f"sharded: dense frame, rank {r}'s band != one process")
+        require(res["dense"]["launches"] == 1 and res["dense"]["conv_launches"] == 9,
+                f"sharded: dense launches {res['dense']['launches']}, "
+                f"{res['dense']['conv_launches']}")
+    phase("sharded:dense", size=f"{DN_W}x{DN_H}", rpp=DENSE_RPP, denoiser="shipped UNet",
+          band_rows=dh, equal="bitwise")
+    del dense
+
+    z = np.load(TRAIN_DIR / "batch.npz")
+    batch = {k: torch.from_numpy(z[k]).cuda() for k in z.files}
+    model, sched, opt = denoiser.create_train_state(
+        torch.Generator().manual_seed(0), TRAIN_CROP, TRAIN_CROP, TRAIN_LR, arch="unet",
+        base=TRAIN_BASE)
+    loss = float(denoiser.train_step(model, opt, sched, batch))
+    loss_err = abs(ranks[0]["train"]["loss"] - loss) / loss
+    require(ranks[0]["train"]["loss"] == ranks[1]["train"]["loss"] and loss_err <= 1e-3,
+            f"sharded: data-parallel loss {ranks[0]['train']['loss']} vs {loss}")
+    worst = 0.0
+    for n, p in model.named_parameters():
+        g = p.grad.cpu().numpy()
+        g0 = ranks[0]["train"]["grads"][n]
+        require(np.array_equal(g0, ranks[1]["train"]["grads"][n]), f"sharded: ranks' {n} grads differ")
+        worst = max(worst, float(np.linalg.norm(g0 - g) / np.linalg.norm(g)))
+    require(worst <= 1e-2, f"sharded: data-parallel gradients rel L2 {worst}")
+    phase("sharded:train_step", ranks=SHARDED_RANKS, batch_per_rank=TRAIN_BATCH // SHARDED_RANKS,
+          loss_rel_err=f"{loss_err:.3e}", max_grad_rel_l2=f"{worst:.3e}", bar_grad="<=1e-2",
+          bar_loss="<=1e-3")
+    return dict(sharded_frame_ms_two_ranks_one_card=ranks[0]["off"]["frame_ms"],
+                sharded_launches_per_rank=ranks[0]["off"]["launches"],
+                sharded_train_grad_rel_l2=worst)
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1743,8 +2156,7 @@ def main():
     t0 = time.perf_counter()
     scene = rt.load_scene_from_string(seeded_scene_xml(0, SIZE, SIZE))
     dscene = rt.build_device_scene(scene)
-    cfg = rt.RenderConfig(rays_per_pixel=RPP, rays_per_block=2048, use_aa=True,
-                          use_blur=True, exact_silhouettes=True, use_denoiser=False)
+    cfg = main_path_config()
     cam = rt.Camera()
     require(dscene.s_pad <= 128, f"s_pad {dscene.s_pad} <= 128")
     require(trace_cuda.accel_kind(dscene, cfg) == "seg", "segment candidate lists")
@@ -1853,6 +2265,9 @@ def main():
     conv_entry, denoised_trace = denoise_phases(smi)
     dense_trace = dense_phases()
     session_trace = session_phases()
+    train_trace, train_conv = train_phases()
+    sharded_trace = sharded_phases()
+    conv_entry.update(train_conv)
 
     print(json.dumps({"kernels": [{
         "name": "trace",
@@ -1874,7 +2289,8 @@ def main():
         "build_s": build_s,
         "instantiations": trace_info,
         "card": smi,
-    } | denoised_trace | dense_trace | session_trace, conv_entry]}), flush=True)
+    } | denoised_trace | dense_trace | session_trace | train_trace | sharded_trace,
+        conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

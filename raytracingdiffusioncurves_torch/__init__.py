@@ -30,7 +30,10 @@ Quick start::
 Interactive use: ``InteractiveSession`` (zoom, pan, screenshot; moving
 frames take their tables from a world grid), ``viewer_http.HttpViewer``
 (an MJPEG page), and the CLI ``python -m raytracingdiffusioncurves_torch
-scene.xml 128``.
+scene.xml 128`` (``--devices N``: row bands on N devices,
+``parallel/sharded.py`` over ``torch.distributed``).  The denoiser trains
+on the renderer's own output: ``python -m
+raytracingdiffusioncurves_torch.models.train_denoiser gen|train``.
 """
 
 from .config import Camera, RenderConfig
@@ -40,6 +43,7 @@ from .models.denoiser import (
     apply_denoiser,
     net_for_params,
     params_from_jax,
+    params_to_jax,
 )
 from .models.renderer import (
     FrameState,
@@ -63,7 +67,7 @@ from .ops.trace_cuda import (
 )
 from .scene.device import DeviceScene, build_device_scene, from_jax_arrays
 from .scene.xml_loader import SceneTables, load_scene, load_scene_from_string
-from .utils.checkpoint import load_params, load_session, save_session
+from .utils.checkpoint import load_params, load_session, save_params, save_session
 from .utils.image import psnr, save_image, to_uint8, to_uint8_device
 from .viewer import InteractiveSession, run_viewer
 
@@ -100,6 +104,8 @@ __all__ = [
     "load_params",
     "net_for_params",
     "params_from_jax",
+    "params_to_jax",
+    "save_params",
     "apply_denoiser",
     "spatial_bilateral",
     "temporal_denoise",

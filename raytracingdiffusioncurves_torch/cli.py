@@ -10,7 +10,12 @@ with ``--device auto|cpu`` in place of its ``--backend``/``--device``:
     python -m raytracingdiffusioncurves_torch <scene.xml> <rays_per_pixel>
         [--frames N] [--out image.png] [--width W --height H]
         [--no-blur] [--no-denoiser] [--no-aa] [--zoom Z --offset-x X --offset-y Y]
-        [--device auto|cpu] [--viewer | --http-viewer PORT] [--stats]
+        [--device auto|cpu] [--devices N] [--viewer | --http-viewer PORT] [--stats]
+
+``--devices N`` (N > 1) renders the frame in N row bands, one spawned rank
+per device (``parallel/sharded.py``): rank i on ``cuda:i`` with NCCL, or N
+gloo ranks on the CPU with ``--device cpu``.  Rank 0 prints and writes the
+image.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--viewer", action="store_true", help="open the interactive viewer")
     p.add_argument("--http-viewer", type=int, default=None, metavar="PORT",
                    help="serve the live MJPEG viewer on this port (0 = auto)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="render in row bands across N devices, one rank each (0 = single)")
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="write a torch.profiler Chrome trace of the timed frames")
     p.add_argument("--resume", default=None, metavar="CKPT",
@@ -77,8 +84,52 @@ def shipped_weights() -> str | None:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.devices > 1:
+        if args.viewer or args.http_viewer is not None or args.profile:
+            parser.error("--viewer, --http-viewer and --profile run on one device, not --devices")
+        return _render_sharded(args)
 
+    from .utils.devices import resolve_device
+
+    return _render(args, resolve_device("cpu" if args.device == "cpu" else "cuda"))
+
+
+def _render_sharded(args) -> int:
+    """--devices N: N spawned ranks, NCCL across N cards or gloo on the CPU."""
+    import torch
+
+    from .parallel import sharded
+    from .utils.devices import resolve_device
+
+    if args.device == "cpu":
+        backend = "gloo"
+    else:
+        resolve_device("cuda")
+        have = torch.cuda.device_count()
+        if args.devices > have:
+            raise ValueError(f"requested {args.devices} devices, have {have}")
+        backend = "nccl"
+    sharded.spawn_ranks(_rank, args.devices, (args,), backend=backend, timeout=None)
+    return 0
+
+
+def _rank(rank: int, world_size: int, args) -> int:
+    """One rank of --devices: its device, the mesh, the render."""
+    import torch
+
+    from .parallel import sharded
+
+    device = torch.device("cpu") if args.device == "cpu" else torch.device("cuda", rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return _render(args, device, sharded.make_mesh(world_size, device_type=device.type))
+
+
+def _render(args, device, mesh=None) -> int:
+    """The CLI's render on ``device``; with ``mesh`` this rank's part of the
+    row-band render (every rank runs it, rank 0 prints and writes)."""
     import torch
 
     from . import (
@@ -93,10 +144,14 @@ def main(argv=None) -> int:
         save_image,
     )
     from .ops import trace_cuda
-    from .utils.devices import resolve_device
+    from .parallel import sharded
     from .utils.timing import Metrics, PhaseTimer
 
-    device = resolve_device("cpu" if args.device == "cpu" else "cuda")
+    lead = mesh is None or mesh.get_local_rank() == 0
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
 
     def sync():
         if device.type == "cuda":
@@ -131,7 +186,7 @@ def main(argv=None) -> int:
         from .utils.checkpoint import load_session
 
         state, camera, _ = load_session(args.resume, device=device)
-        print(f"resumed at frame {state.frame} from {args.resume}")
+        say(f"resumed at frame {state.frame} from {args.resume}")
 
     # The learned denoiser, built once: an explicit path wins; by default the
     # shipped UNet, so `use_denoiser` means the trained model out
@@ -147,13 +202,21 @@ def main(argv=None) -> int:
 
     # The camera's acceleration tables, hoisted (the one-time accel build,
     # optixHello.cpp:764-830): the CLI renders a static camera.
+    # With a mesh, each rank's tables cover its own band.
     with timer.phase("accel_build"):
-        tables = trace_cuda.build_cand_tables(dev, camera, config)
-        gather_len = trace_cuda.seg_max_count(dev, tables)
+        if mesh is None:
+            tables = trace_cuda.build_cand_tables(dev, camera, config)
+            gather_len = trace_cuda.seg_max_count(dev, tables)
+        else:
+            tables = sharded.build_cand_tables_sharded(mesh, dev, camera, config)
+            gather_len = sharded.seg_max_count_sharded(mesh, dev, tables)
         if gather_len is not None:
             tables = trace_cuda.narrow_cand_tables(tables, gather_len)
 
     def run(st):
+        if mesh is not None:
+            return sharded.render_frame_sharded(mesh, dev, camera, st, config, denoiser=denoiser,
+                                                cand_tables=tables, gather_len=gather_len)
         return render_frame(dev, camera, st, config, denoiser=denoiser,
                             cand_tables=tables, gather_len=gather_len)
 
@@ -163,7 +226,7 @@ def main(argv=None) -> int:
         image, state = run(state)
         sync()
     setup_time = time.perf_counter() - setup_start
-    print(f"Setup took : {setup_time * 1000:.1f}ms")
+    say(f"Setup took : {setup_time * 1000:.1f}ms")
 
     if args.viewer:
         from .viewer import run_viewer
@@ -192,26 +255,29 @@ def main(argv=None) -> int:
                 sync()
             metrics.inc("frames")
             metrics.inc("rays", scene.width * scene.height * args.rays)
-            print(f"\rframe : {f + 1}", end="", flush=True)
+            say(f"\rframe : {f + 1}", end="", flush=True)
     if timer.phases.get("frame"):
         mean_ms = timer.mean_ms("frame")
-        print(f"\nAverage frame time : {mean_ms:.2f}ms")
+        say(f"\nAverage frame time : {mean_ms:.2f}ms")
         metrics.set("mean_frame_ms", round(mean_ms, 3))
         metrics.set(
             "rays_per_sec",
             round(scene.width * scene.height * args.rays / (mean_ms / 1000.0)),
         )
     if args.stats:
-        print(timer.report())
-        print(metrics.dump())
+        say(timer.report())
+        say(metrics.dump())
 
-    if args.save_session:
+    if args.save_session and lead:
         from .utils.checkpoint import save_session
 
         print(f"saved session to {save_session(args.save_session, state, camera)}")
 
-    path = save_image(image, args.out, flip_vertical=not args.no_diffusion_save)
-    print(f"wrote {path}")
+    if mesh is not None:
+        image = sharded.gather_rows(mesh, image)
+    if lead:
+        path = save_image(image, args.out, flip_vertical=not args.no_diffusion_save)
+        print(f"wrote {path}")
     return 0
 
 

@@ -1,22 +1,32 @@
-"""Learned denoiser (inference): the residual CNN and the UNet of the JAX
-package as ``nn.Module``s, on the hand-written 3x3 convolution kernel.
+"""Learned denoiser: the residual CNN and the UNet of the JAX package as
+``nn.Module``s, their inference on the hand-written 3x3 convolution kernel,
+and their training.
 
 The reference leans on OptiX's *trained* temporal denoiser model
 (OPTIX_DENOISER_MODEL_KIND_TEMPORAL, optixHello.cpp:1057).  The analytic
 temporal/bilateral pass (ops/denoise.py) covers the blend semantics; the
 networks here predict a residual correction on top of it.  Weights come from
 the shipped checkpoints (``utils/checkpoint.load_params`` +
-``net_for_params``); training is not ported.
+``net_for_params``) or from ``models/train_denoiser.py``.
 
 The modules compute the networks as the JAX package's flax modules define
 them (``UNetDenoiser.__call__``), on NHWC bf16 tensors with float32
 parameters cast to bf16 per call.  The JAX package's inference route
 (``apply_unet_flat``: space-to-depth packing, a ring-padded flat layout,
 pre-summed phase kernels) is a TPU layout of the same network and is not
-carried over.  Every convolution goes through ``ops/conv_cuda.conv3x3``:
-the CUDA kernel on the card, its plain version on the CPU.  The decoder's
-channel concats are input groups of that kernel, and its nearest 2x
-upsamples are read inside the kernel: neither is ever written to memory.
+carried over.  Every inference convolution goes through
+``ops/conv_cuda.conv3x3``: the CUDA kernel on the card, its plain version on
+the CPU.  The decoder's channel concats are input groups of that kernel, and
+its nearest 2x upsamples are read inside the kernel: neither is ever written
+to memory.
+
+Training (the JAX package's ``create_train_state`` / ``loss_fn`` /
+``train_step``) runs the batch whole through ``conv3x3_train``: the same
+function on (N, H, W, C) tensors through ``F.conv2d``, with autograd.  The
+JAX train step uses no Pallas kernel either (flax ``nn.Conv`` lowers to
+``lax.conv_general_dilated``).  Adam and the cosine schedule follow optax's
+defaults; with a process group the gradients are averaged over it before the
+update (the data-parallel step).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -39,7 +50,7 @@ BF16 = torch.bfloat16
 def analytic_baseline(noisy: torch.Tensor, warped_prev: torch.Tensor) -> torch.Tensor:
     """The analytic temporal pass on already-warped history
     (ops/denoise.py temporal_denoise with the warp factored out): bilateral +
-    temporal blend, for one (H, W, 3) image."""
+    temporal blend, for (..., H, W, 3) images (leading axes are a batch)."""
     spatial = denoise_ops.spatial_bilateral(noisy)
     return warped_prev + (spatial - warped_prev) * denoise_ops.TEMPORAL_ALPHA
 
@@ -66,11 +77,33 @@ class Conv3x3(nn.Module):
         return conv(xs, ks, self.bias.to(BF16), self.stride, self.relu, upsample)
 
 
+def conv3x3_train(xs, ks, b, stride: int = 1, relu: bool = True, upsample=None) -> torch.Tensor:
+    """The training convolution: ``conv3x3``'s function on a batch, (N, H,
+    W, C_i) bf16 groups, through ``F.conv2d`` (differentiable).  The groups
+    are concatenated along channels (after a nearest 2x upsample where
+    flagged), padded as JAX's SAME (stride 2 pads (0, 1)), convolved on the
+    bf16 operands with no bias, the result rounded to bf16 and only then the
+    bf16 bias added, as flax's ``nn.Conv`` computes it (``F.conv2d(bias=)``
+    would add the bias before rounding).  Returns (N, H_out, W_out, Cout)
+    bf16."""
+    upsample = tuple(upsample) if upsample is not None else (False,) * len(xs)
+    parts = [x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) if up else x
+             for x, up in zip(xs, upsample)]
+    x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    _, top, bottom = conv_cuda.same_padding(x.shape[1], stride)
+    _, left, right = conv_cuda.same_padding(x.shape[2], stride)
+    x = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    k = torch.cat(list(ks), dim=2).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    y = F.conv2d(x, k, stride=stride).permute(0, 2, 3, 1) + b
+    return torch.relu(y) if relu else y
+
+
 class _ResidualDenoiser(nn.Module):
     """Shared batch handling: ``forward(noisy, warped_prev, aux, analytic)``
     on (N, H, W, C) float32 tensors, as the flax modules' ``__call__``;
     returns ``analytic + residual`` (N, H, W, 3) float32.  ``conv`` is the
-    convolution function (default: the dispatching ``conv3x3``)."""
+    convolution function (default: the dispatching ``conv3x3``, one image at
+    a time); ``forward_batch`` is the training forward."""
 
     def forward(self, noisy, warped_prev, aux, analytic=None,
                 conv: Callable = conv_cuda.conv3x3):
@@ -81,6 +114,15 @@ class _ResidualDenoiser(nn.Module):
             x = torch.cat([noisy[i], warped_prev[i], base, aux[i]], dim=-1).to(BF16)
             outs.append(base + self.residual(x, conv).to(torch.float32))
         return torch.stack(outs)
+
+    def forward_batch(self, noisy, warped_prev, aux, analytic=None):
+        """The training forward: the batch whole, the analytic baseline
+        batched, every layer one ``conv3x3_train`` call."""
+        if analytic is None:
+            with torch.no_grad():
+                analytic = analytic_baseline(noisy, warped_prev)
+        x = torch.cat([noisy, warped_prev, analytic, aux], dim=-1).to(BF16)
+        return analytic + self.residual(x, conv3x3_train).to(torch.float32)
 
 
 class DenoiserNet(_ResidualDenoiser):
@@ -126,8 +168,8 @@ class UNetDenoiser(_ResidualDenoiser):
         self.out = Conv3x3(c, 3, relu=False)
 
     def residual(self, x, conv):
-        if x.shape[0] % 4 or x.shape[1] % 4:
-            raise ValueError(f"UNet input size {tuple(x.shape[:2])} must be a multiple of 4")
+        if x.shape[-3] % 4 or x.shape[-2] % 4:
+            raise ValueError(f"UNet input size {tuple(x.shape[-3:-1])} must be a multiple of 4")
         e0 = self.enc0b([self.enc0a([x], conv)], conv)
         e1 = self.enc1b([self.enc1a([e0], conv)], conv)
         e2 = self.enc2b([self.enc2a([e1], conv)], conv)
@@ -141,6 +183,114 @@ def noise_level(rays_per_pixel) -> float:
     return float(1.0 / math.sqrt(float(rays_per_pixel)))
 
 
+def make_batch_from_renders(noisy_img, target_img, prev_img, blur_map, noise=0.0):
+    """Assemble one training example from renderer outputs (leading batch dim
+    added); ``noise`` is the noisy render's noise_level(rpp)."""
+    aux = torch.stack([blur_map, torch.full_like(blur_map, float(noise))], dim=-1)
+    return {
+        "noisy": noisy_img[None, ..., :3],
+        "warped_prev": prev_img[None, ..., :3],
+        "aux": aux[None],
+        "target": target_img[None, ..., :3],
+    }
+
+
+# flax's default kernel init, lecun_normal: a normal truncated at +-2 sigma,
+# its sigma divided by the truncated unit normal's own std so the draws have
+# variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
+    """optax's ``cosine_decay_schedule``: count -> learning rate, from
+    ``init_value`` down to ``alpha * init_value`` over ``decay_steps``
+    counts, constant after."""
+    def schedule(count: int) -> float:
+        count = min(count, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+    return schedule
+
+
+def _conv_layers(model: nn.Module):
+    return [(name, m) for name, m in model.named_children() if isinstance(m, Conv3x3)]
+
+
+def create_train_state(generator: torch.Generator, height: int, width: int, lr=1e-3,
+                       aux_channels: int = 2, arch: str = "cnn", base: int | None = None,
+                       device=None):
+    """A freshly initialised model with its optimizer, as the JAX package's
+    ``create_train_state``.  Returns (model, sched, opt):
+
+    * ``model``: the DenoiserNet ("cnn") or UNetDenoiser ("unet"), ``base``
+      overriding its width (UNet ``base`` / CNN ``features``), float32
+      parameters on ``device`` (None = CUDA).  Kernels are drawn on the CPU
+      from ``generator`` layer by layer as flax's ``lecun_normal``, so every
+      device gets the same weights: a normal truncated at +-2 sigma, sigma
+      = sqrt(1 / (9 Cin)) / 0.8796; biases are zero.
+    * ``sched``: the ``LambdaLR`` that holds the step count and the learning
+      rate (the JAX TrainState's ``step``); ``lr`` is a float or a schedule
+      count -> lr (``cosine_decay_schedule``), the first update taking count 0.
+    * ``opt``: Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8): the
+      update lr * m_hat / (sqrt(v_hat) + eps).
+
+    ``height``/``width`` are the JAX signature's; no parameter depends on
+    them."""
+    del height, width
+    in_channels = 9 + aux_channels
+    if arch == "unet":
+        model = UNetDenoiser(in_channels=in_channels, **({"base": base} if base else {}))
+    elif arch == "cnn":
+        model = DenoiserNet(in_channels=in_channels, **({"features": base} if base else {}))
+    else:
+        raise ValueError(f"arch must be 'cnn' or 'unet', got {arch!r}")
+    with torch.no_grad():
+        for _, layer in _conv_layers(model):
+            std = math.sqrt(1.0 / (9 * layer.kernel.shape[2])) / _TRUNC_STD
+            nn.init.trunc_normal_(layer.kernel, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            layer.bias.zero_()
+    model.to(resolve_device(device))
+    schedule = lr if callable(lr) else (lambda _count, lr=float(lr): lr)
+    opt = torch.optim.Adam(model.parameters(), lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+    return model, sched, opt
+
+
+def loss_fn(model: nn.Module, batch: dict) -> torch.Tensor:
+    """L1 + MSE of the training forward against the high-rpp reference
+    render: mean |err| + mean err^2."""
+    pred = model.forward_batch(batch["noisy"], batch["warped_prev"], batch["aux"])
+    err = pred - batch["target"]
+    return err.abs().mean() + (err * err).mean()
+
+
+def train_step(model: nn.Module, opt, sched, batch: dict, group=None) -> torch.Tensor:
+    """One training step on ``batch`` (dict of (N, H, W, C) float32 tensors
+    on the model's device); returns the loss (a tensor: reading it waits for
+    the card).  With a process group ``group`` every rank passes its own
+    shard of the batch: the gradients and the loss are averaged over the
+    group (one all_reduce) before the update, the data-parallel step (the
+    JAX package's gradient mean as a psum)."""
+    params = list(model.parameters())
+    opt.zero_grad(set_to_none=False)
+    loss = loss_fn(model, batch)
+    loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1)])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat /= dist.get_world_size(group)
+        offset = 0
+        for p in params:
+            p.grad.copy_(flat[offset : offset + p.numel()].view_as(p.grad))
+            offset += p.numel()
+        loss = flat[-1]
+    opt.step()
+    sched.step()
+    return loss
+
+
 def params_from_jax(params) -> dict[str, torch.Tensor]:
     """The JAX package's parameter tree (``{"params": {layer: {"kernel":
     (3, 3, Cin, Cout), "bias": (Cout,)}}}``, numpy float32) as the state
@@ -151,6 +301,18 @@ def params_from_jax(params) -> dict[str, torch.Tensor]:
         for leaf in ("kernel", "bias"):
             state[f"{layer}.{leaf}"] = torch.tensor(np.asarray(leaves[leaf], np.float32))
     return state
+
+
+def params_to_jax(model: nn.Module) -> dict:
+    """The inverse of ``params_from_jax``: the module's parameters as the
+    JAX package's tree, ``{"params": {layer: {"kernel": (3, 3, Cin, Cout),
+    "bias": (Cout,)}}}`` of float32 numpy arrays, layers in the module's
+    order."""
+    return {"params": {
+        name: {"kernel": layer.kernel.detach().cpu().numpy().copy(),
+               "bias": layer.bias.detach().cpu().numpy().copy()}
+        for name, layer in _conv_layers(model)
+    }}
 
 
 def net_for_params(params, device=None) -> nn.Module:

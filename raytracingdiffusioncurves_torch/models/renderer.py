@@ -225,6 +225,15 @@ def init_progressive_state(width: int, height: int, device=None) -> ProgressiveS
     )
 
 
+def _accumulate(sums, prog: ProgressiveState, reset: bool) -> ProgressiveState:
+    """This pass's raw sums added to the accumulator, or alone on ``reset``."""
+    csum, wsum, bsum = sums
+    if reset:
+        return ProgressiveState(csum, wsum, bsum, 1)
+    return ProgressiveState(csum + prog.color_sum, wsum + prog.weight_sum,
+                            bsum + prog.blur_sum, prog.passes + 1)
+
+
 def render_frame_progressive(
     scene: DeviceScene,
     camera: Camera,
@@ -253,14 +262,10 @@ def render_frame_progressive(
     csum, wsum, bsum = trace_cuda.trace_sums_flat(
         scene, camera, config, state.frame, 0, h * w, cand_tables, gather_len
     )
-    csum, wsum, bsum = csum.reshape(h, w, 3), wsum.reshape(h, w), bsum.reshape(h, w)
-    if not reset:
-        csum = csum + prog.color_sum
-        wsum = wsum + prog.weight_sum
-        bsum = bsum + prog.blur_sum
-    next_prog = ProgressiveState(csum, wsum, bsum, 1 if reset else prog.passes + 1)
-
-    image, blur_map = normalize_sums(csum, wsum, bsum, config)
+    next_prog = _accumulate(
+        (csum.reshape(h, w, 3), wsum.reshape(h, w), bsum.reshape(h, w)), prog, reset)
+    image, blur_map = normalize_sums(
+        next_prog.color_sum, next_prog.weight_sum, next_prog.blur_sum, config)
     image, next_prev = _postprocess(
         image, blur_map, state, config, scene, max_blur_radius, denoiser
     )

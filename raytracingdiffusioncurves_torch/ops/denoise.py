@@ -38,7 +38,8 @@ def _bf16_scalar(v: float) -> float:
 
 def spatial_bilateral(image: torch.Tensor, bf16_weights: bool = True) -> torch.Tensor:
     """5x5 joint bilateral filter weighted by the image's own colours, all
-    channels.
+    channels, of an (..., H, W, C) image: leading axes are a batch (the JAX
+    package maps the single-image filter over them with ``jax.vmap``).
 
     ``bf16_weights`` (the JAX package's default, ``BILATERAL_BF16``): only
     the WEIGHT chain (colour differences, squared distance, exp) runs in
@@ -49,20 +50,22 @@ def spatial_bilateral(image: torch.Tensor, bf16_weights: bool = True) -> torch.T
     r = _BILATERAL_RADIUS
     inv_ss = 1.0 / (2.0 * _BILATERAL_SIGMA_SPACE**2)
     inv_sc = 1.0 / (2.0 * _BILATERAL_SIGMA_COLOR**2)
-    h, w = image.shape[0], image.shape[1]
-    # edge padding of the two image axes
-    padded = F.pad(image.permute(2, 0, 1)[None], (r, r, r, r), mode="replicate")[0].permute(1, 2, 0)
+    h, w, c = image.shape[-3:]
+    # edge padding of the two image axes, over the batch as one (N, C, H, W)
+    flat = image.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    padded = F.pad(flat, (r, r, r, r), mode="replicate").permute(0, 2, 3, 1)
+    padded = padded.reshape(image.shape[:-3] + padded.shape[1:])
     accum = torch.zeros_like(image)
-    wsum = torch.zeros(image.shape[:2], dtype=image.dtype, device=image.device)
+    wsum = torch.zeros(image.shape[:-1], dtype=image.dtype, device=image.device)
     if bf16_weights:
         centre = image[..., :3].to(torch.bfloat16)
         padded_g = padded[..., :3].to(torch.bfloat16)
         inv_sc_b = _bf16_scalar(inv_sc)
     for dy in range(-r, r + 1):
         for dx in range(-r, r + 1):
-            nb = padded[dy + r : dy + r + h, dx + r : dx + r + w]
+            nb = padded[..., dy + r : dy + r + h, dx + r : dx + r + w, :]
             if bf16_weights:
-                nbg = padded_g[dy + r : dy + r + h, dx + r : dx + r + w]
+                nbg = padded_g[..., dy + r : dy + r + h, dx + r : dx + r + w, :]
                 diff = nbg - centre
                 dist2 = torch.sum(diff * diff, dim=-1)
                 wgt = torch.exp(

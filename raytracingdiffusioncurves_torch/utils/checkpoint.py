@@ -6,7 +6,9 @@ are extension type 1, an ndarray packed as the MessagePack array ``(shape,
 dtype name, bytes)``.  This module reads the forms such files hold itself
 (short maps, arrays and strings, unsigned ints, ``bin`` and the ndarray
 extension) and raises on any other tag, so the port needs neither ``flax``
-nor a ``msgpack`` package.
+nor a ``msgpack`` package.  ``save_params`` writes the same forms and no
+other: its bytes are those of ``flax.serialization.to_bytes`` of the same
+tree, so either package loads a checkpoint the other trained.
 
 A session (``save_session`` / ``load_session``) is the JAX package's
 ``.npz`` layout, so either package resumes the other's: ``version`` 1, the
@@ -106,6 +108,73 @@ def parse_params(data: bytes):
     if reader.pos != len(reader.data):
         raise ValueError(f"{len(reader.data) - reader.pos} bytes after the MessagePack value")
     return tree
+
+
+def _pack_uint(n: int) -> bytes:
+    if n <= 0x7F:
+        return struct.pack(">B", n)
+    for tag, fmt, top in ((0xCC, "B", 0xFF), (0xCD, "H", 0xFFFF), (0xCE, "I", 0xFFFFFFFF),
+                          (0xCF, "Q", 0xFFFFFFFFFFFFFFFF)):
+        if n <= top:
+            return struct.pack(">B" + fmt, tag, n)
+    raise ValueError(f"integer {n} does not fit a MessagePack uint")
+
+
+def _pack_str(v: str) -> bytes:
+    b = v.encode("utf-8")
+    if len(b) > 31:
+        raise ValueError(f"key {v!r}: strings above 31 bytes are not a checkpoint form")
+    return struct.pack(">B", 0xA0 | len(b)) + b
+
+
+def _pack_sized(tags: tuple[int, int, int], n: int) -> bytes:
+    """The header of a bin or ext of n bytes: its 8-, 16- or 32-bit form."""
+    for tag, fmt, top in zip(tags, "BHI", (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if n <= top:
+            return struct.pack(">B" + fmt, tag, n)
+    raise ValueError(f"{n} bytes do not fit a MessagePack bin or ext")
+
+
+def _pack_ndarray(arr: np.ndarray) -> bytes:
+    if arr.ndim > 15:
+        raise ValueError(f"array of {arr.ndim} dimensions is not a checkpoint form")
+    raw = arr.tobytes("C")
+    payload = (struct.pack(">B", 0x90 | 3)
+               + struct.pack(">B", 0x90 | arr.ndim) + b"".join(_pack_uint(d) for d in arr.shape)
+               + _pack_str(arr.dtype.name)
+               + _pack_sized((0xC4, 0xC5, 0xC6), len(raw)) + raw)
+    if len(payload) in (1, 2, 4, 8, 16):  # MessagePack's fixext sizes
+        raise ValueError(f"array {arr.shape}: a {len(payload)}-byte payload is not a checkpoint form")
+    return _pack_sized((0xC7, 0xC8, 0xC9), len(payload)) + struct.pack(">b", _EXT_NDARRAY) + payload
+
+
+def _pack(tree) -> bytes:
+    if isinstance(tree, dict):
+        if len(tree) > 15:
+            raise ValueError(f"a map of {len(tree)} entries is not a checkpoint form")
+        return struct.pack(">B", 0x80 | len(tree)) + b"".join(
+            _pack_str(str(k)) + _pack(v) for k, v in tree.items())
+    if isinstance(tree, np.ndarray):
+        return _pack_ndarray(tree)
+    raise TypeError(f"checkpoint leaves are numpy arrays, got {type(tree).__name__}")
+
+
+def params_to_bytes(tree) -> bytes:
+    """A checkpoint's MessagePack bytes for a tree of dicts with numpy array
+    leaves (``params_to_jax``'s tree), in the tree's own key order: the bytes
+    ``flax.serialization.to_bytes`` gives the same tree.  Raises on a form
+    ``load_params`` does not read."""
+    return _pack(tree)
+
+
+def save_params(path: str, tree) -> str:
+    """Write ``tree`` as a checkpoint (``params_to_bytes``), beside ``path``
+    and then moved over it."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(params_to_bytes(tree))
+    os.replace(tmp, path)
+    return path
 
 
 _FORMAT_VERSION = 1

@@ -26,6 +26,11 @@ the result, which is rounded again after the bias
 (|diff| <= 2^-7 * (2 |y| + |bias|)).  The denoised frame, kernel route vs
 plain route: the network's output is a bf16 residual, so single values move
 by one bf16 step (3.9e-3 below 1, 7.8e-3 from 1 to 2): max 1e-2, mean 1e-4.
+
+Training: the batched training forward (cuDNN's bf16 convolution, the
+batched bilateral) against the per-image forward on the plain convolution,
+and one train step against the same step on the CPU (loss 1e-3 relative,
+gradients 3e-2 relative L2: two libraries' bf16 convolutions).
 """
 
 import dataclasses
@@ -641,3 +646,54 @@ def test_moving_session_frame_enqueues_without_a_host_sync(cuda):
     torch.cuda.synchronize()
     assert s.grid is grid and s.grid_builds == 1 and tc.LAUNCHES == 1
     assert img.shape == (h, w, 4) and torch.isfinite(img).all()
+
+
+def _train_batch(device, n=8, size=64, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    target = torch.rand((n, size, size, 3), generator=gen)
+    return {k: v.to(device) for k, v in {
+        "noisy": target + 0.2 * torch.randn(target.shape, generator=gen),
+        "warped_prev": torch.rand((n, size, size, 3), generator=gen),
+        "aux": torch.rand((n, size, size, 2), generator=gen),
+        "target": target,
+    }.items()}
+
+
+def test_training_forward_on_the_card(cuda):
+    """The batched training forward (conv3x3_train through cuDNN, the
+    batched bilateral) against the per-image inference forward on the plain
+    convolution, on the card: the outputs of a bf16 residual, at most two
+    bf16 steps of ~1 apart; the batched analytic baseline bitwise equal to
+    the per-image one."""
+    model, _, _ = dn.create_train_state(torch.Generator().manual_seed(0), 64, 64, arch="unet",
+                                        device=cuda)
+    b = _train_batch(cuda)
+    with torch.no_grad():
+        base = dn.analytic_baseline(b["noisy"], b["warped_prev"])
+        loop = torch.stack([dn.analytic_baseline(n, p) for n, p in zip(b["noisy"], b["warped_prev"])])
+        assert torch.equal(base, loop)
+        got = model.forward_batch(b["noisy"], b["warped_prev"], b["aux"])
+        want = model(b["noisy"], b["warped_prev"], b["aux"], conv=cc.conv3x3_plain)
+    assert float((got - want).abs().max()) <= 2 * 2.0**-7
+
+
+def test_train_step_on_the_card(cuda):
+    """One train step on the card against the same step on the CPU from the
+    same initial weights: losses within 1e-3 relative, gradients within 3e-2
+    relative L2 per tensor (cuDNN's and oneDNN's bf16 convolutions sum in
+    other orders), and the loss falls over 10 steps on the fixed batch."""
+    b = _train_batch(cuda)
+    m_c, s_c, o_c = dn.create_train_state(torch.Generator().manual_seed(0), 64, 64, arch="unet",
+                                          device="cpu")
+    m_g, s_g, o_g = dn.create_train_state(torch.Generator().manual_seed(0), 64, 64, arch="unet",
+                                          device=cuda)
+    l_c = dn.train_step(m_c, o_c, s_c, {k: v.cpu() for k, v in b.items()})
+    l_g = dn.train_step(m_g, o_g, s_g, b)
+    assert abs(float(l_g) - float(l_c)) <= 1e-3 * float(l_c)
+    for (name, pc), pg in zip(m_c.named_parameters(), m_g.parameters()):
+        g_c, g_g = pc.grad, pg.grad.cpu()
+        assert float((g_g - g_c).norm()) <= 3e-2 * float(g_c.norm()), name
+    first = float(l_g)
+    for _ in range(10):
+        loss = dn.train_step(m_g, o_g, s_g, b)
+    assert float(loss) < first

@@ -15,8 +15,8 @@ rules.
   chained frames differ by up to two steps: max 1e-2, fewer than 1% of
   values above 5e-3, mean 1e-3 (measured over two frames: max 7.9e-3,
   0.4% above 5e-3, mean 8.4e-4).
-* ``import raytracingdiffusioncurves_torch`` pulls in neither jax nor the
-  JAX package.
+* ``import raytracingdiffusioncurves_torch`` and its trainer, sharding and
+  CLI modules pull in none of jax, flax, optax, msgpack or the JAX package.
 * Entry points default to CUDA and raise when it is absent.
 """
 
@@ -199,8 +199,11 @@ def test_import_pulls_in_no_jax():
         "import raytracingdiffusioncurves_torch\n"
         "import raytracingdiffusioncurves_torch.ops._build\n"
         "import raytracingdiffusioncurves_torch.utils.scenes\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m.startswith('raytracingdiffusioncurves_tpu')]\n"
+        "import raytracingdiffusioncurves_torch.models.train_denoiser\n"
+        "import raytracingdiffusioncurves_torch.parallel.sharded\n"
+        "import raytracingdiffusioncurves_torch.cli\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'optax', 'msgpack', 'raytracingdiffusioncurves_tpu')]\n"
         "assert not bad, bad\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
