@@ -20,8 +20,19 @@ paths through the public entry points, checking the images:
   candidate lists with a per-ray exit and the horizon fallback into the
   sorted chunk lists, held against the kernel's own full sweep bit for bit
   and against the plain version; also a dolphin-class scene (7360) at 64
-  rays per pixel, the chunk-lists-only kind, and the lady_bug-class scene
-  at 8 rays per pixel (two wedges, where no ray leaves its list early);
+  rays per pixel, the chunk-lists-only kind (wedge shift 0), and the
+  lady_bug-class scene at 8 rays per pixel (two wedges, where no ray
+  leaves its list early);
+* BASELINE config 5: the seeded (arch-class) scene at 3840x2160, 1024 rays
+  per pixel, blur on, denoiser off, hoisted tables narrowed by
+  seg_max_count: 256 wedges, so the segment lists are wedge-coarsened
+  (shift 2: four wedges share a table entry).  Coarse lists against the
+  kernel's full sweep bitwise on the whole frame, the kernel against the
+  plain version on the last tile row (ray ids past 2^32), chained frames in
+  turns with the route without coarsening (chunk lists), the card alone,
+  the bound ([config5:*]); the lady_bug class at shift 3 on a band against
+  the full sweep, with its [dense_stats]; the CLI at that frame
+  ([cli:config5]);
 * the interactive session: an InteractiveSession of the denoised frame on a
   scripted zoom / pan sequence ([grid:denoised]) and of the dense-scene
   frame ([grid:dense]), whose moving frames take their tables from the world
@@ -115,8 +126,8 @@ DENSE_TILE_ROWS = 32  # rows of one pixel tile at both dense launch shapes
 CONV_REPS = 20  # timed calls per layer: a layer takes 0.1-0.3 ms
 # Frames timed on the card alone, each queued behind a sleep of SLEEP_CYCLES
 # clock cycles (~50-100 ms at the H100's clocks; a frame's enqueue takes
-# 4-14 ms).
-DEVICE_FRAMES, SLEEP_CYCLES = 3, 100_000_000
+# 4-14 ms); the card-alone time is their median.
+DEVICE_FRAMES, SLEEP_CYCLES = 5, 100_000_000
 WEIGHTS = pathlib.Path(__file__).resolve().parent / "weights" / "denoiser_r3d.msgpack"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).  The
 # 67e12 FP32 FLOP/s count a fused multiply-add as two operations; the trace
@@ -195,31 +206,37 @@ def normalized(sums, rows, width, config):
     )
 
 
-def shaded_rays(scene, cam, cfg, tables):
+def shaded_rays(scene, cam, cfg, tables, row_step=1):
     """(clean, graze) primary rays of one frame 0 of the main path: clean
     rays have one winner on both chains (shade with the Newton refine),
     grazes a band-only winner (root isolation).  Plain PyTorch on the card,
-    for the bound."""
+    for the bound.  ``row_step`` > 1 counts every row_step-th pixel row
+    only and scales the counts by the frame's rows over the rows counted
+    (an estimate, for frames too large to count whole)."""
     w, rpp = scene.width, cfg.rays_per_pixel
     n_px = w * scene.height
-    _, _, sw, _, tile_h, tiles_x, _, _ = trace_cuda._grid_geom(scene, cfg, w, n_px)
+    _, _, sw, n_wedges, tile_h, tiles_x, _, _ = trace_cuda._grid_geom(scene, cfg, w, n_px)
     dev = scene.device
     clean = torch.zeros((), dtype=torch.int64, device=dev)
     graze = torch.zeros((), dtype=torch.int64, device=dev)
     px_chunk = (1 << 18) // rpp
-    for p0 in range(0, n_px, px_chunk):
-        npx = min(px_chunk, n_px - p0)
+    rows = range(0, scene.height, row_step)
+    spans = [(0, n_px)] if row_step == 1 else [(r * w, (r + 1) * w) for r in rows]
+    starts = [(p0, min(px_chunk, e - p0)) for b, e in spans for p0 in range(b, e, px_chunk)]
+    for p0, npx in starts:
         pix = (p0 + torch.arange(npx, device=dev)).repeat_interleave(rpp)
         samples = torch.arange(rpp, device=dev).repeat(npx)
         o, d = intersect.make_rays(pix, samples, w, scene.height, cam, cfg, 0)
-        allowed = trace_cuda._allowed_mask(scene, tables, pix, samples, tile_h, tiles_x, sw)
+        allowed = trace_cuda._allowed_mask(scene, tables, pix, samples, tile_h, tiles_x, sw,
+                                           n_wedges)
         band = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
         wb, _, _, hb = intersect.closest_hit(scene, o, d, cfg.min_hit_distance, band, allowed)
         ws, _, _, hs = intersect.closest_hit(scene, o, d, cfg.min_hit_distance, allowed=allowed)
         same = hb & hs & (wb == ws)
         clean += same.sum()
         graze += (hb & ~same).sum()
-    return int(clean), int(graze)
+    scale = scene.height / len(rows)
+    return round(int(clean) * scale), round(int(graze) * scale)
 
 
 def record_bytes(scene):
@@ -227,20 +244,22 @@ def record_bytes(scene):
     return (scene.walk_records.numel() + scene.shade_records.numel()) * 4
 
 
-def list_bound(label, scene, cam, cfg, tables, trace_ms):
+def list_bound(label, scene, cam, cfg, tables, trace_ms, shade_row_step=1):
     """[bound]-style line of a frame 0 launch over slot-mode lists (the
-    denoiser-off and denoised frames), from this run's data: every ray of a
-    cell tests each of its list's slots, ray counts from the cells that are
-    not empty, clean hits and grazes counted by the plain version; operations
-    at the unfused FP32 rate (OPS_* above), bytes: records, lists and
-    output once.  Returns (ops_ms, bytes_ms)."""
+    denoiser-off and denoised frames, BASELINE config 5), from this run's
+    data: every ray of a cell tests each of its list's slots (a coarse
+    cell's list serves the rays of its 2^shift wedges), ray counts from the
+    cells that are not empty, clean hits and grazes counted by the plain
+    version (on every ``shade_row_step``-th row, scaled: shaded_rays);
+    operations at the unfused FP32 rate (OPS_* above), bytes: records,
+    lists and output once.  Returns (ops_ms, bytes_ms)."""
     w, rpp = scene.width, cfg.rays_per_pixel
     n_px = w * scene.height
     counts = tables.counts
     rays_per_cell = trace_cuda._grid_geom(scene, cfg, w, n_px)[1] * (rpp // counts.shape[1])
     pairs = float(counts.double().sum()) * rays_per_cell
     live_rays = float((counts > 0).double().sum()) * rays_per_cell
-    clean, grazes = shaded_rays(scene, cam, cfg, tables)
+    clean, grazes = shaded_rays(scene, cam, cfg, tables, shade_row_step)
     ops = OPS_PER_PAIR * pairs + OPS_PER_RAY * live_rays + OPS_PER_HIT * clean + OPS_PER_GRAZE * grazes
     table_bytes = tables.ids.numel() * 4 + counts.numel() * 4
     n_bytes = record_bytes(scene) + table_bytes + 5 * n_px * 4
@@ -248,7 +267,7 @@ def list_bound(label, scene, cam, cfg, tables, trace_ms):
     bound_ms = max(ops_ms, bytes_ms)
     phase(label, rays=n_px * rpp, wedges=counts.shape[1], pairs=f"{pairs:.4e}",
           live_rays=f"{live_rays:.4e}", clean_hits=clean,
-          grazes=grazes, fp32_ops=f"{ops:.4e}", walk_ops=f"{OPS_PER_PAIR * pairs:.4e}",
+          grazes=grazes, shade_rows=f"1/{shade_row_step}", fp32_ops=f"{ops:.4e}", walk_ops=f"{OPS_PER_PAIR * pairs:.4e}",
           raygen_ops=f"{OPS_PER_RAY * live_rays:.4e}",
           shade_ops=f"{OPS_PER_HIT * clean + OPS_PER_GRAZE * grazes:.4e}",
           bytes=n_bytes, ops_ms=f"{ops_ms:.4f}", bytes_ms=f"{bytes_ms:.4f}",
@@ -480,12 +499,12 @@ def timed_frames(step, n):
     return start.elapsed_time(end) / n, enqueue_ms
 
 
-def device_frame_ms(step, n=DEVICE_FRAMES):
-    """Device ms of one frame with the host out of the way: each frame is
-    queued behind a sleep kernel that outlasts its enqueue, so the card runs
-    it from a full queue.  Returns the mean over n frames; raises if the
-    card reached a frame before the host had queued all of it."""
-    total = 0.0
+def device_frames_ms(step, n=DEVICE_FRAMES):
+    """Device ms of each of n frames with the host out of the way: each
+    frame is queued behind a sleep kernel that outlasts its enqueue, so the
+    card runs it from a full queue.  Raises if the card reached a frame
+    before the host had queued all of it."""
+    readings = []
     for _ in range(n):
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -495,8 +514,16 @@ def device_frame_ms(step, n=DEVICE_FRAMES):
         end.record()
         require(not start.query(), "device frame time: the sleep ended before the frame was queued")
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / n
+        readings.append(start.elapsed_time(end))
+    return readings
+
+
+def device_frame_ms(step, n=DEVICE_FRAMES):
+    """Device ms of one frame on the card alone: the median of
+    device_frames_ms, so that one frame slowed by something outside the
+    program (a clock dip, another process querying the card) does not stand for
+    the frame."""
+    return float(np.median(device_frames_ms(step, n)))
 
 
 def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoised_path"):
@@ -533,12 +560,14 @@ def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoise
     want_convs = 9 * n_frames if net is not None else 0
     require(trace_launches == n_frames, f"{label}: trace launches {trace_launches}")
     require(conv_launches == want_convs, f"{label}: conv launches {conv_launches} != {want_convs}")
-    device_ms = device_frame_ms(step)
+    device_readings = device_frames_ms(step)
+    device_ms = float(np.median(device_readings))
     # The card alone cannot take longer than the chained frame, which also
     # waits for the host: a reading above it (beyond noise) is a fault of
     # the measurement, not an idle share of 0.
     require(device_ms <= frame_ms * 1.02,
-            f"{label}: the card alone {device_ms:.3f} ms > chained {frame_ms:.3f} ms")
+            f"{label}: the card alone {device_ms:.3f} ms (median of "
+            f"{', '.join(f'{v:.3f}' for v in device_readings)}) > chained {frame_ms:.3f} ms")
 
     # The last frame again, by hand: prev_image is the denoised un-blurred
     # frame, the displayed image its blur, the flow all zero.
@@ -596,6 +625,7 @@ def denoised_sequence(label, dscene, cfg, net, n_frames=DN_FRAMES, path="denoise
           host_enqueue_ms_per_frame=f"{enqueue_ms:.3f}",
           host_enqueue_ms_one_frame_queue_empty=f"{drained_ms:.3f}",
           device_ms_per_frame_queue_full=f"{device_ms:.3f}",
+          device_ms_frames=",".join(f"{v:.3f}" for v in device_readings),
           device_idle_share=f"{1.0 - device_ms / frame_ms:.4f}", no_host_sync=True,
           trace_launches=trace_launches, conv_launches=conv_launches,
           conv_launches_per_frame=conv_launches // n_frames, zoom_frame_ms=f"{zoom_ms:.3f}",
@@ -999,8 +1029,9 @@ def dense_phases():
     # (d) chunk lists only: more than 64 wedges, no segment lists
     cscene = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, 256, 256, "lady_bug")))
     ccfg = rt.RenderConfig(rays_per_pixel=512, use_denoiser=False)
-    require(trace_cuda.accel_kind(cscene, ccfg) == "chunk", "chunk lists only at 128 wedges")
-    ctabs = rt.build_cand_tables(cscene, cam, ccfg)
+    require(trace_cuda.accel_kind(cscene, ccfg, wedge_shift=0) == "chunk",
+            "chunk lists only at 128 wedges, wedge shift 0")
+    ctabs = rt.build_cand_tables(cscene, cam, ccfg, wedge_shift=0)
     require(ctabs.ids is None and ctabs.chunk_ids is not None, "chunk kind: chunk lists alone")
     c_n = 256 * 256
     c_ms, ck = cuda_ms(lambda: trace_cuda.trace_sums_flat(cscene, cam, ccfg, 0, 0, c_n, ctabs), 1)
@@ -1008,7 +1039,7 @@ def dense_phases():
     for a, b in zip(ck, cf):
         require(torch.equal(a, b), "chunk kind: kernel with chunk lists != kernel full sweep")
     c_rows = 64
-    cband = trace_cuda.build_cand_tables(cscene, cam, ccfg, 0, c_rows * 256)
+    cband = trace_cuda.build_cand_tables(cscene, cam, ccfg, 0, c_rows * 256, wedge_shift=0)
     c_plain_ms, cp = cuda_ms(
         lambda: trace_cuda.trace_sums_plain(cscene, cam, ccfg, 0, 0, c_rows * 256, cband), 1)
     c_err = parity(normalized(cp, c_rows, 256, ccfg),
@@ -1056,6 +1087,266 @@ def dense_phases():
         dense_chunk_kind_ms=c_ms, dense_chunk_kind_max_abs_err=c_err,
         dense_few_wedges_ms=few["ms"], dense_few_wedges_full_sweep_ms=few["sweep_ms"],
         dense_few_wedges_pairs_per_ray=few["pairs_per_ray"],
+    )
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 5: 3840x2160, 1024 rays per pixel, wedge-coarsened tables
+# ---------------------------------------------------------------------------
+
+# benchmarks/run_all.py:267-286 on one card: the arch-class scene at
+# 3840x2160, 1024 rays per pixel, blur on, denoiser off, AA and exact
+# silhouettes on, tables hoisted and narrowed by seg_max_count.  256 wedges:
+# segment lists exist only over coarser wedges (trace_cuda.table_layout:
+# shift 2 on the seeded scene, 3 on the lady_bug class).
+C5_W, C5_H, C5_RPP = 3840, 2160, 1024
+C5_FRAMES, C5_ROUNDS = 3, 2  # timed frames per route and round; rounds in turns
+C5_BAND_ROWS = 16  # the last tile row (2160 = 67 x 32 + 16): ray ids past 2^32
+C5_LB_ROW, C5_LB_ROWS = 1024, 32  # the lady_bug class's band: one tile row
+C5_SHADE_ROW_STEP = 64  # the bound counts clean hits and grazes on every 64th row
+
+
+def config5_config():
+    return rt.RenderConfig(rays_per_pixel=C5_RPP, use_blur=True, use_denoiser=False)
+
+
+def config5_setup():
+    """[config5:setup]: the scene on the card and its hoisted tables, as
+    run_all.py's config 5 builds them (build_cand_tables, seg_max_count,
+    narrow_cand_tables)."""
+    t0 = time.perf_counter()
+    scene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, C5_W, C5_H)))
+    cfg = config5_config()
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    require(cfg.use_aa and cfg.use_blur and cfg.exact_silhouettes and not cfg.use_denoiser,
+            "config5: AA, blur, exact silhouettes on, denoiser off")
+    kind, shift = trace_cuda.table_layout(scene, cfg)
+    require(kind == "seg" and shift == 2, f"config5: kind {kind}, wedge shift {shift}")
+    _, _, sw, n_wedges, _, _, _, n_tiles = trace_cuda._grid_geom(scene, cfg, C5_W, C5_W * C5_H)
+    t0 = time.perf_counter()
+    built = rt.build_cand_tables(scene, rt.Camera(), cfg)
+    gl = rt.seg_max_count(scene, built)
+    tables = rt.narrow_cand_tables(built, gl)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built_bytes = built.nbytes
+    require(built.ids.shape == (n_tiles, n_wedges >> shift, scene.s_pad),
+            f"config5: tables {tuple(built.ids.shape)}")
+    require(built_bytes == trace_cuda._seg_table_bytes(scene.s_pad, n_tiles, n_wedges >> shift),
+            "config5: table bytes as counted by the rule")
+    del built
+    counts = tables.counts
+    fine_bytes = trace_cuda._seg_table_bytes(scene.s_pad, n_tiles, n_wedges)
+    phase("config5:setup", size=f"{C5_W}x{C5_H}", rpp=C5_RPP, n_sub=scene.n_sub,
+          s_pad=scene.s_pad, kind=kind, wedge_shift=shift, wedges=n_wedges,
+          table_wedges=n_wedges >> shift, samples_per_wedge=sw, tiles=n_tiles,
+          table_bytes_built=built_bytes, table_gib_built=f"{built_bytes / 2**30:.3f}",
+          fine_table_gib=f"{fine_bytes / 2**30:.3f}",
+          cap_gib=f"{trace_cuda._CAND_TABLE_BYTES_CAP / 2**30:.3f}",
+          gather_len=gl, table_bytes=tables.nbytes,
+          mean_count=f"{float(counts.float().mean()):.3f}", max_count=int(counts.max()),
+          empty_cells=f"{float((counts == 0).float().mean()):.4f}",
+          scene_seconds=f"{scene_s:.3f}", build_seconds=f"{build_s:.3f}")
+    return scene, cfg, tables, gl, dict(shift=shift, n_wedges=n_wedges, build_s=build_s,
+                                        table_bytes=built_bytes, gather_len=gl)
+
+
+def config5_frames(scene, cfg, tables, gl):
+    """[config5:path]: render_frame chained through the public entry points,
+    the coarse lists (the main path) and, in turns with it, the route
+    without coarsening (chunk lists, a forced wedge shift of 0); the sync
+    check; the card alone behind a sleep; each route's trace alone."""
+    cam = rt.Camera()
+    n_px = C5_W * C5_H
+    ctables = rt.build_cand_tables(scene, cam, cfg, wedge_shift=0)
+    n_wedges = trace_cuda._grid_geom(scene, cfg, C5_W, n_px)[3]
+    require(ctables.ids is None and ctables.chunk_ids.shape[1] == n_wedges,
+            "config5: forced shift 0 takes chunk lists at the fine wedge")
+    routes = {"coarse": (tables, gl), "chunk": (ctables, None)}
+    holders, steps = {}, {}
+    for name, (tabs, g) in routes.items():
+        holder = {"state": rt.init_frame_state(C5_W, C5_H)}
+
+        def step(tabs=tabs, g=g, holder=holder):
+            holder["img"], holder["state"] = rt.render_frame(
+                scene, cam, holder["state"], cfg, cand_tables=tabs, gather_len=g)
+
+        step()
+        holders[name], steps[name] = holder, step
+    torch.cuda.synchronize()
+    # a frame queues without waiting for the card: any host sync raises here
+    torch.cuda.set_sync_debug_mode("error")
+    steps["coarse"]()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    frame0 = holders["coarse"]["state"].frame
+    frame_ms = {n: [] for n in routes}
+    enqueue_ms = {n: [] for n in routes}
+    trace_ms = {n: [] for n in routes}
+    launches = {n: 0 for n in routes}
+    sums = {}
+    for r in range(C5_ROUNDS):
+        for name in (("coarse", "chunk") if r % 2 == 0 else ("chunk", "coarse")):
+            trace_cuda.reset_launch_count()
+            ms, enq = timed_frames(steps[name], C5_FRAMES)
+            launches[name] += trace_cuda.LAUNCHES
+            frame_ms[name].append(ms)
+            enqueue_ms[name].append(enq)
+            tabs, g = routes[name]
+            ms, sums[name] = cuda_ms(
+                lambda: trace_cuda.trace_sums_flat(scene, cam, cfg, 0, 0, n_px, tabs, g), 1)
+            trace_ms[name].append(ms)
+    require(launches["coarse"] == C5_ROUNDS * C5_FRAMES,
+            f"config5: {launches['coarse']} trace launches in {C5_ROUNDS * C5_FRAMES} frames")
+    for a, b in zip(sums["coarse"], sums["chunk"]):
+        require(torch.equal(a, b), "config5: coarse lists != chunk lists")
+    device_ms = device_frame_ms(steps["coarse"])
+    state, img = holders["coarse"]["state"], holders["coarse"]["img"]
+    require(state.frame == frame0 + C5_ROUNDS * C5_FRAMES + DEVICE_FRAMES,
+            f"config5: frame counter {state.frame}")
+    require(img.shape == (C5_H, C5_W, 4) and bool(torch.isfinite(img).all()),
+            "config5: finite (H, W, 4) image")
+    spread = float(img[..., :3].std())
+    require(spread > 0.01, f"config5: spread {spread}")
+    require(not torch.equal(img, state.prev_image), "config5: blur left the frame unchanged")
+    mean = {n: sum(v) / len(v) for n, v in frame_ms.items()}
+    idle = 1.0 - device_ms / mean["coarse"]
+    phase("config5:path", frames=C5_FRAMES, rounds=C5_ROUNDS, trace_launches=launches["coarse"],
+          ms_per_frame=f"{mean['coarse']:.3f}",
+          ms_per_frame_rounds=",".join(f"{v:.3f}" for v in frame_ms["coarse"]),
+          host_enqueue_ms=",".join(f"{v:.3f}" for v in enqueue_ms["coarse"]),
+          device_ms_per_frame_queue_full=f"{device_ms:.3f}", device_idle_share=f"{idle:.4f}",
+          trace_ms=",".join(f"{v:.3f}" for v in trace_ms["coarse"]),
+          chunk_route_ms_per_frame=",".join(f"{v:.3f}" for v in frame_ms["chunk"]),
+          chunk_route_trace_ms=",".join(f"{v:.3f}" for v in trace_ms["chunk"]),
+          chunk_route_table_bytes=ctables.nbytes, coarse_eq_chunk="bitwise", no_host_sync=True,
+          rays_per_s=f"{n_px * C5_RPP / (min(trace_ms['coarse']) * 1e-3):.4e}",
+          image_std=f"{spread:.4f}")
+    return dict(frame_ms=mean["coarse"], enqueue_ms=min(enqueue_ms["coarse"]),
+                device_ms=device_ms, idle=idle, trace_ms=min(trace_ms["coarse"]),
+                launches=launches["coarse"], chunk_frame_ms=mean["chunk"],
+                chunk_trace_ms=min(trace_ms["chunk"]))
+
+
+def config5_lady_bug():
+    """[config5:lady_bug]: the lady_bug class at config 5's frame: wedge
+    shift 3, capped distance-ordered coarse lists with coarse chunk lists;
+    a band's lists == the kernel's full sweep bitwise and == its rows of the
+    whole-frame launch; [dense_stats] / [dense_bound] of the frame."""
+    cam = rt.Camera()
+    t0 = time.perf_counter()
+    dscene = rt.build_device_scene(
+        rt.load_scene_from_string(dense_scene_xml(0, C5_W, C5_H, "lady_bug")))
+    cfg = config5_config()
+    kind, shift = trace_cuda.table_layout(dscene, cfg)
+    require(kind == "seg" and shift == 3, f"config5 lady_bug: kind {kind}, wedge shift {shift}")
+    tables = rt.build_cand_tables(dscene, cam, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_wedges = trace_cuda._grid_geom(dscene, cfg, C5_W, C5_W * C5_H)[3]
+    require(tables.ids.shape[1] == n_wedges >> shift and tables.chunk_ids is not None,
+            "config5 lady_bug: coarse capped lists with chunk lists")
+    n_px = C5_W * C5_H
+    trace_ms, whole = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, tables), 1)
+    px0, n_band = C5_LB_ROW * C5_W, C5_LB_ROWS * C5_W
+    btabs = trace_cuda.build_cand_tables(dscene, cam, cfg, px0, n_band)
+    require(trace_cuda.table_wedge_shift(btabs, n_wedges) == shift,
+            "config5 lady_bug: the band takes the frame's shift")
+    kb = trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, px0, n_band, btabs)
+    sweep_ms, fb = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, px0, n_band, None), 1)
+    for a, b, c in zip(kb, fb, whole):
+        require(torch.equal(a, b), "config5 lady_bug: band lists != the kernel's full sweep")
+        require(torch.equal(a, c[px0:px0 + n_band]),
+                "config5 lady_bug: band launch != its rows of the frame's")
+    require(float(kb[1].sum()) > 0.0, "config5 lady_bug: the band has weight")
+    cand_len = tables.ids.shape[-1]
+    phase("config5:lady_bug", n_sub=dscene.n_sub, s_pad=dscene.s_pad, kind=kind,
+          wedge_shift=shift, table_wedges=n_wedges >> shift, cand_len=cand_len,
+          table_bytes=tables.nbytes, setup_seconds=f"{build_s:.3f}",
+          cells_past_cand_len=f"{float((tables.counts > cand_len).float().mean()):.4f}",
+          band=f"{C5_LB_ROW}+{C5_LB_ROWS}", band_rays=n_band * C5_RPP, lists_eq_full="bitwise",
+          band_eq_frame="bitwise", band_full_sweep_ms=f"{sweep_ms:.1f}",
+          frame_trace_ms=f"{trace_ms:.3f}")
+    del whole, kb, fb, btabs
+    st = dense_stats("config5_lady_bug", dscene, cfg, cam, tables, trace_ms, need_fallback=False)
+    return dict(ms=trace_ms, shift=shift, table_bytes=tables.nbytes, bound_ms=st["bound_ms"],
+                slots_per_ray=st["slots_per_ray"])
+
+
+def config5_phases():
+    """BASELINE config 5 on one card: [config5:setup], [config5:frame_parity],
+    [config5:band_parity], [config5:path], [config5:bound],
+    [config5:lady_bug] (with its [dense_stats] / [dense_bound]) and
+    [cli:config5].  Returns the trace kernel's config5_* numbers."""
+    scene, cfg, tables, gl, setup = config5_setup()
+    cam = rt.Camera()
+    n_px = C5_W * C5_H
+    rays = n_px * C5_RPP
+    # the whole frame: coarse lists == the kernel's own full sweep, bitwise
+    kern = trace_cuda.trace_sums_flat(scene, cam, cfg, 0, 0, n_px, tables, gl)
+    sweep_ms, full = cuda_ms(
+        lambda: trace_cuda.trace_sums_flat(scene, cam, cfg, 0, 0, n_px, None), 1)
+    for a, b in zip(kern, full):
+        require(torch.equal(a, b), "config5 frame: coarse lists != the kernel's full sweep")
+    require(float(kern[1].sum()) > 0.0, "config5 frame: the trace has weight")
+    del full
+    phase("config5:frame_parity", rays=rays, lists_eq_full="bitwise",
+          full_sweep_ms=f"{sweep_ms:.1f}", full_sweep_pairs=f"{rays * scene.n_sub:.4e}")
+    # the last tile row, ray ids past 2^32: the kernel vs the plain version
+    px0, n_band = (C5_H - C5_BAND_ROWS) * C5_W, C5_BAND_ROWS * C5_W
+    btabs = trace_cuda.build_cand_tables(scene, cam, cfg, px0, n_band)
+    require(trace_cuda.table_wedge_shift(btabs, setup["n_wedges"]) == setup["shift"],
+            "config5: the band takes the frame's shift")
+    kb = trace_cuda.trace_sums_flat(scene, cam, cfg, 0, px0, n_band, btabs)
+    for a, b in zip(kb, kern):
+        require(torch.equal(a, b[px0:px0 + n_band]), "config5: band launch != its rows of the frame's")
+    del kern
+    plain_ms, plain = cuda_ms(
+        lambda: trace_cuda.trace_sums_plain(scene, cam, cfg, 0, px0, n_band, btabs), 1)
+    err = parity(normalized(plain, C5_BAND_ROWS, C5_W, cfg), normalized(kb, C5_BAND_ROWS, C5_W, cfg))
+    sums_err = max(float((a - b).abs().max()) for a, b in zip(plain, kb))
+    phase("config5:band_parity", rows=f"{C5_H - C5_BAND_ROWS}+{C5_BAND_ROWS}",
+          rays=n_band * C5_RPP, first_ray_id=px0 * C5_RPP,
+          last_ray_id=(px0 + n_band) * C5_RPP - 1, wedge_shift=setup["shift"],
+          band_eq_frame="bitwise", max_abs_err=f"{err:.3e}", sums_max_abs_err=f"{sums_err:.3e}",
+          plain_ms=f"{plain_ms:.1f}")
+    del plain, kb, btabs
+    path = config5_frames(scene, cfg, tables, gl)
+    ops_ms, bytes_ms = list_bound("config5:bound", scene, cam, cfg, tables, path["trace_ms"],
+                                  shade_row_step=C5_SHADE_ROW_STEP)
+    del scene, tables
+    torch.cuda.empty_cache()
+    lady = config5_lady_bug()
+    torch.cuda.empty_cache()
+    mean_ms, setup_ms, phases, metrics, img, wall_s = run_cli(
+        "cli_config5", seeded_scene_xml(0, C5_W, C5_H), C5_RPP,
+        ["--width", str(C5_W), "--height", str(C5_H), "--no-denoiser", "--frames", "4"])
+    require(img.size == (C5_W, C5_H) and img.mode == "RGBA", f"cli config5: image {img.size}")
+    require(phases["frame"]["count"] == 3 and metrics["counters"]["frames"] == 3,
+            "cli config5: frames")
+    phase("cli:config5", size=f"{C5_W}x{C5_H}", rpp=C5_RPP, weights="none",
+          average_frame_time_ms=f"{mean_ms:.2f}", setup_ms=f"{setup_ms:.1f}",
+          wall_s=f"{wall_s:.2f}", phases=json.dumps(phases), metrics=json.dumps(metrics))
+    return dict(
+        config5_launches=path["launches"], config5_ms=path["trace_ms"],
+        config5_frame_ms=path["frame_ms"], config5_host_enqueue_ms=path["enqueue_ms"],
+        config5_device_ms=path["device_ms"], config5_device_idle_share=path["idle"],
+        config5_chunk_route_frame_ms=path["chunk_frame_ms"],
+        config5_chunk_route_ms=path["chunk_trace_ms"],
+        config5_full_sweep_ms=sweep_ms, config5_max_abs_err=err,
+        config5_plain_band_ms=plain_ms, config5_plain_band_rays=n_band * C5_RPP,
+        config5_bound_ms=max(ops_ms, bytes_ms),
+        config5_bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        config5_wedge_shift=setup["shift"], config5_table_bytes=setup["table_bytes"],
+        config5_table_build_s=setup["build_s"], config5_gather_len=setup["gather_len"],
+        config5_lady_bug_ms=lady["ms"], config5_lady_bug_wedge_shift=lady["shift"],
+        config5_lady_bug_table_bytes=lady["table_bytes"],
+        config5_lady_bug_bound_ms=lady["bound_ms"],
+        config5_lady_bug_slots_per_ray=lady["slots_per_ray"],
+        config5_cli_average_frame_ms=mean_ms,
     )
 
 
@@ -1584,6 +1875,7 @@ def run_cli(label, xml, rpp, args):
     image)."""
     from PIL import Image
 
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
     xml_path, png = SMOKE_DIR / f"{label}.xml", SMOKE_DIR / f"{label}.png"
     xml_path.write_text(xml)
     cmd = [sys.executable, "-m", "raytracingdiffusioncurves_torch", str(xml_path), str(rpp),
@@ -2264,6 +2556,7 @@ def main():
 
     conv_entry, denoised_trace = denoise_phases(smi)
     dense_trace = dense_phases()
+    config5_trace = config5_phases()
     session_trace = session_phases()
     train_trace, train_conv = train_phases()
     sharded_trace = sharded_phases()
@@ -2289,7 +2582,8 @@ def main():
         "build_s": build_s,
         "instantiations": trace_info,
         "card": smi,
-    } | denoised_trace | dense_trace | session_trace | train_trace | sharded_trace,
+    } | denoised_trace | dense_trace | config5_trace | session_trace | train_trace
+      | sharded_trace,
         conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,10 @@
 // exactly zero and is skipped.  Portal continuation rays always walk every
 // segment: lists cover primary rays only.  Each thread adds its pixel's
 // sums in its own shared-memory slots and writes them once, no atomics, so
-// the output is deterministic.
+// the output is deterministic.  Wedge-coarsened tables (past 64 wedges, or
+// past the tables' byte cap: trace_cuda.table_layout) share one entry among
+// 2^shift adjacent wedges; a wedge reads its entry at w >> shift, while
+// raygen and the wedge loop keep the fine wedge.
 //
 // Operands.  Every walk (a cell's list, the sorted chunk walk, the full
 // sweep, portal bounces) is cut into pieces of 32 slots.  The warp stages a
@@ -139,19 +142,21 @@ constexpr uint32_t M1 = 0x85EBCA6Bu, M2 = 0xC2B2AE35u, GOLDEN = 0x9E3779B9u,
 struct Params {
   const float4* walk;       // (s_pad, 8): two float4 walk records per segment
   const float4* shade;      // (s_pad, ALLT_ROWS): sixteen float4 per segment
-  const int* cand_ids;      // (T, W, cand_len) or null
-  const int* cand_counts;   // (T, W) or null
-  const float* cand_lbs;    // (T, W, cand_len) or null: distance order
-  const float* cand_horizon;  // (T, W) or null
-  const int* chunk_ids;     // (T, W, chunk_slots) or null
-  const float* chunk_lbs;   // (T, W, chunk_slots) or null
-  const int* chunk_counts;  // (T, W) or null
+  // Tables per (tile, table wedge) cell: W_t = n_wedges >> wedge_shift
+  // table wedges, each entry shared by 2^wedge_shift adjacent wedges.
+  const int* cand_ids;      // (T, W_t, cand_len) or null
+  const int* cand_counts;   // (T, W_t) or null
+  const float* cand_lbs;    // (T, W_t, cand_len) or null: distance order
+  const float* cand_horizon;  // (T, W_t) or null
+  const int* chunk_ids;     // (T, W_t, chunk_slots) or null
+  const float* chunk_lbs;   // (T, W_t, chunk_slots) or null
+  const int* chunk_counts;  // (T, W_t) or null
   const float* circle;      // (4,) scene circle cx, cy, r; key slack (distance order)
   int* stats;               // (N_STATS, n_px) or null
   float* out;               // (5, n_px)
   int n_sub, cand_len, chunk_slots, n_px;
   int width, height, px_start, tiles_x, tile_h, pxb, n_rows;
-  int rpp, sw, n_wedges;
+  int rpp, sw, n_wedges, tab_wedges, wedge_shift;
   float zoom, off_x, off_y;
   uint32_t frame, seed;
   int use_aa, save, exact, n_traces;
@@ -755,7 +760,9 @@ __global__ void __launch_bounds__(BLOCK, DIST ? MIN_BLOCKS_DIST : MIN_BLOCKS_ID)
   for (int i = 0; i < 5; ++i) sums[i][t] = 0.0f;
   int st[N_STATS] = {0, 0, 0, 0, 0, 0, 0, 0};
   for (int w = 0; w < P.n_wedges; ++w) {
-    const int cell = tile * P.n_wedges + w;
+    // the table cell: wedge-coarsened tables share one entry among 2^shift
+    // adjacent wedges; raygen below keeps the fine wedge
+    const int cell = tile * P.tab_wedges + (w >> P.wedge_shift);
     Span prim = sweep;  // the primary rays' walk
     if (DIST) {
       // empty cell: no segment (or chunk) passes, every primary ray misses
@@ -892,7 +899,9 @@ int info(int* out) {
 // (s_pad, ALLT_ROWS) float32, 16-byte aligned.  Tables
 // (trace_cuda.CandTables): id-ordered lists are cand_ids + cand_counts
 // alone; distance-ordered tables add cand_lbs + cand_horizon and/or the
-// chunk lists, with the scene circle.  ``stats`` (distance order only)
+// chunk lists, with the scene circle.  ``tab_wedges``: the tables' wedge
+// count, n_wedges >> their wedge shift (n_wedges for fine tables and
+// without tables).  ``stats`` (distance order only)
 // selects the counting instantiation.
 extern "C" int rtdc_trace_sums(const float* walk_records, const float* shade_records, int s_pad,
                                int n_sub, const int* cand_ids, const int* cand_counts,
@@ -901,13 +910,19 @@ extern "C" int rtdc_trace_sums(const float* walk_records, const float* shade_rec
                                const int* chunk_counts, int chunk_slots, const float* circle,
                                int* stats, float* out, int n_px, int width, int height,
                                int px_start, int tiles_x, int tiles_y, int tile_h, int pxb,
-                               int rpp, int sw, int n_wedges, float zoom, float off_x,
-                               float off_y, uint32_t frame, uint32_t seed, int use_aa, int save,
-                               int exact, int n_traces, float min_hit, void* stream) {
+                               int rpp, int sw, int n_wedges, int tab_wedges, float zoom,
+                               float off_x, float off_y, uint32_t frame, uint32_t seed,
+                               int use_aa, int save, int exact, int n_traces, float min_hit,
+                               void* stream) {
   if (width <= 0 || rpp <= 0 || sw <= 0 || pxb <= 0 || n_sub < 0 || n_sub > s_pad)
     return (int)cudaErrorInvalidValue;
+  // the tables' wedges coarsen the fan's by a power of two
+  if (tab_wedges <= 0 || tab_wedges > n_wedges) return (int)cudaErrorInvalidValue;
+  int wedge_shift = 0;
+  while ((tab_wedges << wedge_shift) < n_wedges) ++wedge_shift;
+  if ((tab_wedges << wedge_shift) != n_wedges) return (int)cudaErrorInvalidValue;
   // list offsets are int (Span)
-  if ((long long)tiles_x * tiles_y * n_wedges * cand_len > 0x7fffffffLL)
+  if ((long long)tiles_x * tiles_y * tab_wedges * cand_len > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)walk_records | (uintptr_t)shade_records) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
@@ -946,6 +961,8 @@ extern "C" int rtdc_trace_sums(const float* walk_records, const float* shade_rec
   P.rpp = rpp;
   P.sw = sw;
   P.n_wedges = n_wedges;
+  P.tab_wedges = tab_wedges;
+  P.wedge_shift = wedge_shift;
   P.zoom = zoom;
   P.off_x = off_x;
   P.off_y = off_y;

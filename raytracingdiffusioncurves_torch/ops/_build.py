@@ -55,7 +55,7 @@ SIGNATURES = {
              _P, _P,  # scene circle, stats
              _P, _I,  # out, n_px
              _I, _I, _I, _I, _I, _I, _I,  # width, height, px_start, tiles_x, tiles_y, tile_h, pxb
-             _I, _I, _I,  # rpp, sw, n_wedges
+             _I, _I, _I, _I,  # rpp, sw, n_wedges, the tables' wedge count
              _F, _F, _F, _U, _U,  # zoom, off_x, off_y, frame, seed
              _I, _I, _I, _I, _F,  # use_aa, save, exact, n_traces, min_hit
              _P],  # stream

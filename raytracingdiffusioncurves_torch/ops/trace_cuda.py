@@ -44,9 +44,12 @@ DENSE_SPAD = 4096
 # Slots of one level of a capped candidate list; scenes within one level
 # keep every candidate (slot mode).
 LEVEL_SLOTS = 128
-# Segment-list tables larger than this are not built: the scene takes chunk
-# lists (or, within one chunk, the full sweep) instead.
+# Segment-list tables larger than this are not built: the scene takes coarser
+# wedges, else chunk lists (or, within one chunk, the full sweep) instead.
 _CAND_TABLE_BYTES_CAP = 2 << 30
+# Most adjacent wedges that share one table entry (wedge coarsening; the
+# JAX package's _WEDGE_COARSE_MAX).
+WEDGE_COARSE_MAX = 16
 # (rays x segments) pairs per chunk of the plain version (CPU, CUDA): bounds
 # its intermediates to tens of MB on the CPU, a few GB on the card.
 _PLAIN_CHUNK_PAIRS = (1 << 21, 1 << 25)
@@ -72,7 +75,10 @@ def reset_launch_count() -> None:
 
 class CandTables(NamedTuple):
     """Camera-dependent acceleration tables of one (camera, pixel band), per
-    (tile, wedge) cell.  Three shapes, by the scene's kind (accel_kind):
+    (tile, table wedge) cell.  W below is the table wedge count: the fan's
+    wedges, or with a wedge shift k (table_layout) n_wedges >> k, each entry
+    shared by 2^k adjacent wedges.  Three shapes, by the scene's kind
+    (accel_kind):
 
     * slot-mode segment lists (s_pad <= LEVEL_SLOTS): ``ids`` (T, W, L)
       int32 global segment ids in ascending order, padded with s_pad, and
@@ -182,17 +188,74 @@ def _seg_table_bytes(s_pad: int, n_tiles: int, n_wedges: int) -> int:
     return n_tiles * n_wedges * per_cell
 
 
-def accel_kind(scene: dev.DeviceScene, config: RenderConfig, n_px: int | None = None):
-    """Which acceleration tables the scene gets, as the JAX package decides
-    (without its wedge coarsening): "seg" (per-(tile, wedge) segment lists,
-    plus chunk lists where a list can overflow), "chunk" (chunk lists only:
-    more than CAND_MAX_SPAD sub-segments, more than CAND_MAX_WEDGES wedges,
-    or segment tables past the byte cap) or None (the kernel's full
-    sweep)."""
+def accel_kind(
+    scene: dev.DeviceScene, config: RenderConfig, n_px: int | None = None,
+    wedge_shift: int | None = None,
+):
+    """Which acceleration tables the scene gets, as the JAX package decides:
+    "seg" (per-(tile, table wedge) segment lists, plus chunk lists where a
+    list can overflow), "chunk" (chunk lists only: more than CAND_MAX_SPAD
+    sub-segments, or no wedge coarsening brings the lists within
+    CAND_MAX_WEDGES wedges and the byte cap) or None (the kernel's full
+    sweep).  The arguments are table_layout's."""
+    return table_layout(scene, config, n_px, wedge_shift)[0]
+
+
+def table_layout(
+    scene: dev.DeviceScene, config: RenderConfig, n_px: int | None = None,
+    wedge_shift: int | None = None,
+) -> tuple[str | None, int]:
+    """(kind, wedge shift) of the tables of the band of ``n_px`` pixels
+    (default: the whole frame).  Segment lists of shift k are shared by 2^k
+    adjacent wedges: they hold what any ray of the wider wedge can hit, and
+    divide table memory by 2^k.  The shift is 0 for every other kind.
+
+    ``wedge_shift`` None takes the rule, decided once on the full frame so
+    that every band of it shares one table structure: the smallest k with
+    2^k <= WEDGE_COARSE_MAX dividing the wedge count at which segment lists
+    exist (use_candidates over n_wedges >> k wedges) and fit
+    _CAND_TABLE_BYTES_CAP; with none, shift 0 and the band's own fine
+    choice.  Wherever fine lists exist and fit, k is 0.  This differs from
+    the JAX package's _wedge_coarse_shift in its byte rule alone: that one
+    counts its TPU layout against a 10 GiB cap and goes on to a larger k
+    whose tables fit a 3 GiB target, sized for a 16 GB chip; the port
+    counts its own tables against one 2 GiB cap.  An int forces the shift
+    (0: fine tables, which past CAND_MAX_WEDGES wedges are chunk lists)."""
     w = scene.width
-    n_px = scene.height * w if n_px is None else n_px
+    frame_px = scene.height * w
+    n_px = frame_px if n_px is None else n_px
     _, _, _, n_wedges, _, _, _, n_tiles = _grid_geom(scene, config, w, n_px)
-    return _table_kind(scene, n_tiles, n_wedges)
+    if wedge_shift is None:
+        frame_tiles = _grid_geom(scene, config, w, frame_px)[7]
+        wedge_shift = _coarse_shift(scene.s_pad, frame_tiles, n_wedges) or 0
+    elif wedge_shift < 0 or n_wedges % (1 << wedge_shift) != 0:
+        raise ValueError(f"wedge shift {wedge_shift} does not divide {n_wedges} wedges")
+    kind = _table_kind(scene, n_tiles, n_wedges >> wedge_shift)
+    return kind, wedge_shift if kind == "seg" else 0
+
+
+def _coarse_shift(s_pad: int, n_cells: int, n_wedges: int) -> int | None:
+    """table_layout's rule: the smallest wedge shift whose segment lists
+    exist and fit the byte cap, or None."""
+    k = 0
+    while (1 << k) <= WEDGE_COARSE_MAX and n_wedges % (1 << k) == 0:
+        w_t = n_wedges >> k
+        if (cand_mod.use_candidates(s_pad, w_t)
+                and _seg_table_bytes(s_pad, n_cells, w_t) <= _CAND_TABLE_BYTES_CAP):
+            return k
+        k += 1
+    return None
+
+
+def table_wedge_shift(tables: CandTables, n_wedges: int) -> int:
+    """The wedge shift of built tables, read off their shape (T, n_wedges >>
+    shift, ...) as the JAX package derives it, so hoisted, in-frame and band
+    tables cannot disagree with the launch."""
+    w_t = (tables.ids if tables.ids is not None else tables.chunk_ids).shape[1]
+    ratio = n_wedges // w_t if w_t > 0 else 0
+    if ratio < 1 or ratio * w_t != n_wedges or ratio & (ratio - 1):
+        raise ValueError(f"tables of {w_t} wedges do not coarsen {n_wedges} wedges")
+    return ratio.bit_length() - 1
 
 
 def _table_kind(scene: dev.DeviceScene, n_cells: int, n_wedges: int):
@@ -239,6 +302,7 @@ def build_cand_tables(
     px_start: int = 0,
     n_px: int | None = None,
     key_guard: bool = True,
+    wedge_shift: int | None = None,
 ) -> CandTables | None:
     """Build the camera-dependent acceleration tables for trace_sums_flat's
     ``cand_tables`` argument (the analogue of the reference's accel build,
@@ -253,16 +317,22 @@ def build_cand_tables(
     package's tables (distance bounds), under which a far chord that a ray
     grazes nearly parallel can be missed although the full sweep picks it;
     only the tests that hold the tables against the JAX package and pin
-    that fault ask for them."""
+    that fault ask for them.
+
+    ``wedge_shift``: table_layout's; None takes the full frame's rule, so a
+    band's tables have the frame's structure.  Segment lists of shift k are
+    built at the wider wedge of sw << k samples (the JAX package's sw_t):
+    the cone tests, the key guard's hazards and the chunk lists all see the
+    coarse wedge's angular span."""
     w, h = scene.width, scene.height
     n_px = h * w if n_px is None else n_px
-    kind = accel_kind(scene, config, n_px)
+    kind, shift = table_layout(scene, config, n_px, wedge_shift)
     if kind is None:
         return None
     _, _, sw, _, tile_h, tiles_x, tiles_y, _ = _grid_geom(scene, config, w, n_px)
     grid = (
         w, h, camera.zoom_factor, camera.offset_x, camera.offset_y,
-        config.rays_per_pixel, sw, tiles_x, tiles_y, TILE_W, tile_h, px_start,
+        config.rays_per_pixel, sw << shift, tiles_x, tiles_y, TILE_W, tile_h, px_start,
         config.diffusion_curve_save,
     )
     return _build_tables(scene, config, kind, grid, None, key_guard)
@@ -556,16 +626,18 @@ def trace_walk_stats(
 # ---------------------------------------------------------------------------
 
 
-def _allowed_mask(scene, cand_tables: CandTables, pixel_rel, sample_ids, tile_h, tiles_x, sw):
-    """(N, S) bool: segment j is one that ray n's (tile, wedge) tables
+def _allowed_mask(scene, cand_tables: CandTables, pixel_rel, sample_ids, tile_h, tiles_x, sw,
+                  n_wedges):
+    """(N, S) bool: segment j is one that ray n's (tile, table wedge) tables
     declare hittable — a slot of the cell's segment list or a member of one
-    of the cell's listed chunks."""
+    of the cell's listed chunks.  The table wedge of a ray is its wedge
+    shifted by the tables' wedge shift."""
     w = scene.width
     s_pad = scene.s_pad
     row_rel = pixel_rel // w
     col = pixel_rel % w
     tile = (row_rel // tile_h) * tiles_x + col // TILE_W
-    wedge = sample_ids // sw
+    wedge = (sample_ids // sw) >> table_wedge_shift(cand_tables, n_wedges)
     n = tile.shape[0]
     device = tile.device
     allowed = torch.zeros((n, s_pad), dtype=torch.bool, device=device)
@@ -612,7 +684,7 @@ def trace_sums_plain(
     device = scene.device
     rays_per_chunk = _PLAIN_CHUNK_PAIRS[device.type == "cuda"] // max(scene.s_pad, LEVEL_SLOTS)
     px_chunk = max(1, min(n_px, rays_per_chunk // rpp))
-    _, _, sw, _, tile_h, tiles_x, _, _ = _grid_geom(scene, config, w, n_px)
+    _, _, sw, n_wedges, tile_h, tiles_x, _, _ = _grid_geom(scene, config, w, n_px)
     csum = torch.empty((n_px, 3), dtype=torch.float32, device=device)
     wsum = torch.empty((n_px,), dtype=torch.float32, device=device)
     bsum = torch.empty((n_px,), dtype=torch.float32, device=device)
@@ -626,7 +698,7 @@ def trace_sums_plain(
         allowed = None
         if cand_tables is not None:
             allowed = _allowed_mask(
-                scene, cand_tables, pixel_rel, sample_ids, tile_h, tiles_x, sw
+                scene, cand_tables, pixel_rel, sample_ids, tile_h, tiles_x, sw, n_wedges
             )
         color, weight, blur = intersect.trace_full(scene, origins, dirs, config, allowed)
         color = color.reshape(npx, rpp, 3)
@@ -657,10 +729,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
 def _table_pointers(tables: CandTables | None, n_tiles: int, n_wedges: int):
     """Checked device pointers of the tables in the kernel's argument
     order: (ids, counts, cand_len, lbs, horizon, chunk_ids, chunk_lbs,
-    chunk_counts, chunk_slots, circle); None and 0 for what a kind lacks."""
+    chunk_counts, chunk_slots, circle), and the tables' wedge count (W >>
+    their wedge shift; W without tables); None and 0 for what a kind
+    lacks."""
     if tables is None:
-        return (None, None, 0, None, None, None, None, None, 0, None)
-    cells = (n_tiles, n_wedges)
+        return (None, None, 0, None, None, None, None, None, 0, None), n_wedges
+    cells = (n_tiles, n_wedges >> table_wedge_shift(tables, n_wedges))
     ids_ptr = cnt_ptr = lbs_ptr = hor_ptr = None
     cand_len = 0
     if tables.ids is not None:
@@ -702,19 +776,20 @@ def _table_pointers(tables: CandTables | None, n_tiles: int, n_wedges: int):
     if ids_ptr is None and cid_ptr is None:
         raise ValueError("candidate tables hold neither segment nor chunk lists")
     return (ids_ptr, cnt_ptr, cand_len, lbs_ptr, hor_ptr, cid_ptr, clb_ptr, ccnt_ptr,
-            chunk_slots, circle_ptr)
+            chunk_slots, circle_ptr), cells[1]
 
 
 def launch_args(scene, camera, config, frame, px_start, n_px, cand_tables, out, stats=None):
     """The arguments of csrc/trace.cu's rtdc_trace_sums after its first two
     (the scene's records), checked: the scene's sizes, the tables' device
     pointers, ``stats`` (or None), the (5, n_px) float32 ``out``, the launch
-    geometry, camera and config, and the current stream."""
+    geometry with the tables' wedge count, camera and config, and the
+    current stream."""
     w, h = scene.width, scene.height
     _, pxb, sw, n_wedges, tile_h, tiles_x, tiles_y, n_tiles = _grid_geom(
         scene, config, w, n_px
     )
-    table_args = _table_pointers(cand_tables, n_tiles, n_wedges)
+    table_args, tab_wedges = _table_pointers(cand_tables, n_tiles, n_wedges)
     stats_ptr = None
     if stats is not None:
         _check(stats, "stats", torch.int32, (len(STAT_NAMES), n_px))
@@ -726,7 +801,7 @@ def launch_args(scene, camera, config, frame, px_start, n_px, cand_tables, out, 
         *table_args, stats_ptr,
         out.data_ptr(), n_px,
         w, h, px_start, tiles_x, tiles_y, tile_h, pxb,
-        config.rays_per_pixel, sw, n_wedges,
+        config.rays_per_pixel, sw, n_wedges, tab_wedges,
         float(camera.zoom_factor), float(camera.offset_x), float(camera.offset_y),
         int(frame) & 0xFFFFFFFF, int(config.seed) & 0xFFFFFFFF,
         int(config.use_aa), int(config.diffusion_curve_save),

@@ -90,8 +90,9 @@ def build_cand_tables_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Came
     """This rank's camera-dependent acceleration tables: those of its own
     row band (the ``px_start`` the sharded trace uses), so passing them to
     ``trace_image_sharded``/``render_frame_sharded`` hoists the per-frame
-    prepass like the one-device ``build_cand_tables``.  None for scenes that
-    take the full sweep."""
+    prepass like the one-device ``build_cand_tables``.  Every band takes the
+    full frame's wedge shift (``trace_cuda.table_layout``), so all ranks'
+    tables share one structure.  None for scenes that take the full sweep."""
     px_start, n_px = _band(mesh, scene)
     return trace_cuda.build_cand_tables(scene, camera, config, px_start=px_start, n_px=n_px)
 
@@ -100,7 +101,7 @@ def seg_max_count_sharded(mesh: DeviceMesh, scene: DeviceScene, cand_tables) -> 
     """``seg_max_count`` over every rank's tables (an all_reduce MAX), so
     every rank narrows its lists to one length; None where the tables are not
     slot-mode lists (the same on every rank: the kind depends on the scene,
-    the config and the band size alone)."""
+    the config and the band size alone, the wedge shift on the full frame)."""
     local = trace_cuda.seg_max_count(scene, cand_tables)
     if local is None:
         return None

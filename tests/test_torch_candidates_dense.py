@@ -199,17 +199,17 @@ class _Shape:
     (64, (64, 64), 1, None),             # one wedge, one chunk
     (768, (64, 64), 8, "seg"),           # capped lists, 2 wedges
     (1216, (1920, 1088), 256, "seg"),    # 64 wedges: the cap, inclusive
-    (1216, (256, 256), 512, "chunk"),    # 128 wedges: chunk lists only
+    (1216, (256, 256), 512, "seg"),      # 128 wedges: coarsened to 64
     (8640, (1920, 1088), 64, "seg"),     # dense block geometry
-    (8640, (256, 256), 256, "chunk"),    # dense, 128 wedges
+    (8640, (256, 256), 256, "seg"),      # dense, 128 wedges, coarsened
     (32768, (64, 64), 8, "seg"),
     (32832, (64, 64), 8, "chunk"),       # past CAND_MAX_SPAD
 ])
 def test_accel_kind_equals_jax(s_pad, size, rpp, want):
-    """The port decides as the JAX package does wherever that decides
-    without wedge coarsening (its fine tables fit its table cap).  Coarsening
-    is not ported: a scene that only coarsened tables would admit to segment
-    lists (more than 64 wedges) takes chunk lists here."""
+    """The port decides as the JAX package does, wedge coarsening included:
+    a scene whose lists exist only over coarser wedges (more than 64 wedges)
+    takes segment lists at the same shift (test_torch_coarse.py holds the
+    shift rule against the JAX package's)."""
     scene = _Shape(s_pad, *size)
     cfgj, cfgt = rj.RenderConfig(rays_per_pixel=rpp), rt.RenderConfig(rays_per_pixel=rpp)
     n_px = size[0] * size[1]
@@ -217,10 +217,10 @@ def test_accel_kind_equals_jax(s_pad, size, rpp, want):
     assert tc._grid_geom(scene, cfgt, size[0], n_px) == geom
     shift = tp._wedge_coarse_shift(scene, geom[3], geom[7], tdev.ALLT_ROWS, False)
     assert tc.accel_kind(scene, cfgt) == want
+    assert tp._accel_kind(scene, geom[3], geom[7]) == want
     if shift is not None and shift[0] > 0:
-        assert geom[3] > tcand.CAND_MAX_WEDGES and want == "chunk"
-    else:
-        assert tp._accel_kind(scene, geom[3], geom[7]) == want
+        assert geom[3] > tcand.CAND_MAX_WEDGES and want == "seg"
+        assert tc.table_layout(scene, cfgt) == ("seg", shift[0])
 
 
 @pytest.mark.parametrize("rpp", [8, 64])

@@ -253,12 +253,14 @@ def _dense_case(cuda, name, w, h):
                                  device=cuda)
 
 
-def _assert_dense(dt, cam, cfg, frame, px_start, n_px, want_kind, fallback=True):
+def _assert_dense(dt, cam, cfg, frame, px_start, n_px, want_kind, fallback=True,
+                  wedge_shift=None):
     """Kernel with the scene's tables == kernel full sweep, bitwise; vs the
-    plain version under assert_parity; the walk's counters make sense."""
+    plain version under assert_parity; the walk's counters make sense.
+    ``wedge_shift``: build_cand_tables'; None takes the frame's rule."""
     w = dt.width
-    assert tc.accel_kind(dt, cfg, n_px) == want_kind
-    tabs = tc.build_cand_tables(dt, cam, cfg, px_start, n_px)
+    assert tc.accel_kind(dt, cfg, n_px, wedge_shift) == want_kind
+    tabs = tc.build_cand_tables(dt, cam, cfg, px_start, n_px, wedge_shift=wedge_shift)
     assert tabs.dist_ordered and tc.seg_max_count(dt, tabs) is None
     if want_kind == "chunk":
         assert tabs.ids is None
@@ -340,13 +342,86 @@ def test_dense_block_geometry_scene(cuda):
 
 
 def test_chunk_lists_alone(cuda):
-    """More than 64 wedges: no segment lists, the chunk walk from an empty
-    state."""
+    """More than 64 wedges at wedge shift 0: no segment lists, the chunk
+    walk from an empty state."""
     size = 128
     dt = _dense_case(cuda, "lady_bug", size, size)
     cfg = rt.RenderConfig(rays_per_pixel=512, use_denoiser=False)
-    stats = _assert_dense(dt, rt.Camera(), cfg, 2, 0, size * size, "chunk")
+    stats = _assert_dense(dt, rt.Camera(), cfg, 2, 0, size * size, "chunk", wedge_shift=0)
     assert stats["list_slots"] == 0
+
+
+# ---------------------------------------------------------------------------
+# wedge-coarsened tables: 2^shift adjacent wedges share one table entry
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rpp,shift", [(512, 1), (1024, 2)])
+def test_coarse_slot_lists_equal_full_sweep_and_plain(cuda, rpp, shift):
+    size = 128
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(1, size, size)),
+                               device=cuda)
+    cfg = rt.RenderConfig(rays_per_pixel=rpp, use_denoiser=False)
+    cam = rt.Camera(0.8, 3.0, -5.0)
+    assert tc.table_layout(dt, cfg) == ("seg", shift)
+    tabs = tc.build_cand_tables(dt, cam, cfg)
+    gl = tc.seg_max_count(dt, tabs)
+    n_wedges = tc._grid_geom(dt, cfg, size, size * size)[3]
+    assert tabs.ids.shape[1] == n_wedges >> shift and gl < tabs.ids.shape[-1]
+    tc.reset_launch_count()
+    kern = tc.trace_sums_flat(dt, cam, cfg, 3, 0, size * size, tabs, gl)
+    assert tc.LAUNCHES == 1
+    full = tc.trace_sums_flat(dt, cam, cfg, 3, 0, size * size, None)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, full):
+        assert torch.equal(a, b)
+    plain = tc.trace_sums_plain(dt, cam, cfg, 3, 0, size * size, tabs)
+    _assert_parity(_images(plain, size, size, cfg), _images(kern, size, size, cfg))
+
+
+@pytest.mark.parametrize("name,rpp", [("lady_bug", 512), ("strokes", 1024)])
+def test_coarse_dense_lists_equal_full_sweep_and_plain(cuda, name, rpp):
+    """Capped distance-ordered coarse lists with the horizon fallback into
+    coarse chunk lists."""
+    size = 128
+    dt = _dense_case(cuda, name, size, size)
+    cfg = rt.RenderConfig(rays_per_pixel=rpp, use_denoiser=False)
+    assert tc.table_layout(dt, cfg)[1] > 0
+    _assert_dense(dt, rt.Camera(zoom_factor=1.5), cfg, 1, 0, size * size, "seg",
+                  fallback=name == "strokes")
+
+
+def test_coarse_lists_on_a_4k_band(cuda):
+    """BASELINE config 5's launch shape on its last tile row: the seeded
+    scene at 3840x2160 x 1024 rpp, tables of wedge shift 2 built for the
+    band (ray ids past 2^32); kernel == full sweep bitwise, vs plain under
+    assert_parity."""
+    w, h, rows = 3840, 2160, 16
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, w, h)), device=cuda)
+    cfg = rt.RenderConfig(rays_per_pixel=1024, use_denoiser=False)
+    assert tc.table_layout(dt, cfg) == ("seg", 2)
+    px0 = (h - rows) * w
+    assert px0 * cfg.rays_per_pixel > 2**32
+    cam = rt.Camera()
+    tabs = tc.build_cand_tables(dt, cam, cfg, px0, rows * w)
+    gl = tc.seg_max_count(dt, tabs)
+    kern = tc.trace_sums_flat(dt, cam, cfg, 4, px0, rows * w, tabs, gl)
+    full = tc.trace_sums_flat(dt, cam, cfg, 4, px0, rows * w, None)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, full):
+        assert torch.equal(a, b)
+    plain = tc.trace_sums_plain(dt, cam, cfg, 4, px0, rows * w, tabs)
+    _assert_parity(_images(plain, rows, w, cfg), _images(kern, rows, w, cfg))
+
+
+def test_wrapper_rejects_tables_of_another_wedge_count(cuda):
+    size = 64
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, size, size)), device=cuda)
+    cfg = rt.RenderConfig(rays_per_pixel=512, use_denoiser=False)
+    tabs = tc.build_cand_tables(dt, rt.Camera(), cfg)
+    odd = tc.CandTables(tabs.ids[:, :48].contiguous(), tabs.counts[:, :48].contiguous())
+    with pytest.raises(ValueError, match="do not coarsen"):
+        tc.trace_sums_flat(dt, rt.Camera(), cfg, 0, 0, size * size, odd)
 
 
 def test_dense_tables_without_the_key_guard_launch(cuda):

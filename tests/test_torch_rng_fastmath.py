@@ -45,3 +45,41 @@ def test_sincos_bit_equal():
     st, ct = (v.numpy() for v in tfm.sincos(torch.from_numpy(th)))
     assert np.array_equal(sj.view(np.int32), st.view(np.int32))
     assert np.array_equal(cj.view(np.int32), ct.view(np.int32))
+
+
+def test_raygen_past_2_32_ray_ids():
+    """Ray ids of BASELINE config 5 (3840x2160 x 1024 rpp) run to 8.49e9,
+    past 2^31 and 2^32.  Every version keys the RNG on the id modulo 2^32
+    (the JAX package multiplies in int32, which wraps, and casts to uint32;
+    the kernel multiplies in uint32; the plain version in int64, masked), so
+    jitter and directions agree bit for bit; pixels p and p + 2^32 / 1024
+    draw the same streams, a property of the JAX package the port keeps."""
+    from raytracingdiffusioncurves_tpu.config import Camera as JCamera
+    from raytracingdiffusioncurves_tpu.config import RenderConfig as JConfig
+    from raytracingdiffusioncurves_tpu.ops import intersect as jint
+    from raytracingdiffusioncurves_torch.config import Camera, RenderConfig
+    from raytracingdiffusioncurves_torch.ops import intersect as tint
+
+    w, h, rpp = 3840, 2160, 1024
+    rng = np.random.default_rng(2)
+    last = rng.integers((h - 16) * w, h * w, 2048)  # the last 16 rows: ids past 2^32
+    edges = np.concatenate([np.arange(-4, 4) + (1 << k) // rpp for k in (31, 32)])
+    pix = np.repeat(np.concatenate([last, edges]), rpp)
+    samp = np.tile(np.arange(rpp), pix.size // rpp)
+    ids = pix.astype(np.int64) * rpp + samp
+    assert ids.max() > 2**32 + 2**31 and (ids < 2**31).any() and ((ids >= 2**31) & (ids < 2**32)).any()
+    kw = dict(rays_per_pixel=rpp, seed=5)
+    cam = (0.8, 12.5, -3.0)
+    oj, dj = jint.make_rays(pix.astype(np.int32), samp.astype(np.int32), w, h, JCamera(*cam),
+                            JConfig(**kw), 7)
+    ot, dt = tint.make_rays(torch.from_numpy(pix), torch.from_numpy(samp), w, h, Camera(*cam),
+                            RenderConfig(**kw), 7)
+    for a, b in ((oj, ot), (dj, dt)):
+        assert np.array_equal(np.asarray(a).view(np.int32), b.numpy().view(np.int32))
+    # the JAX package's word: the int32 product, wrapped, as its raygen forms it
+    words = pix.astype(np.int32) * np.int32(rpp) + samp.astype(np.int32)
+    for a, b in zip(jrng.uniform3(5, words, 7), trng.uniform3(5, torch.from_numpy(ids), 7)):
+        assert np.array_equal(np.asarray(a).view(np.int32), b.numpy().view(np.int32))
+    wrap = torch.from_numpy(ids[:rpp] + (1 << 32))
+    for a, b in zip(trng.uniform3(5, torch.from_numpy(ids[:rpp]), 7), trng.uniform3(5, wrap, 7)):
+        assert torch.equal(a, b)

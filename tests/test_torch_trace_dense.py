@@ -282,14 +282,14 @@ def test_distance_bounds_alone_miss_grazing_band_winners():
 
 
 def test_chunk_walk_alone_finds_the_full_sweeps_winners(pair):
-    """Chunk lists only (the tables of a scene with more than 64 wedges:
-    512 rays per pixel, two rows of the picture): the chunk walk from an
-    empty state."""
+    """Chunk lists only (the fine tables of a scene with more than 64
+    wedges, wedge shift 0: 512 rays per pixel, two rows of the picture): the
+    chunk walk from an empty state."""
     _, _, dt = pair
     cfg = rt.RenderConfig(rays_per_pixel=512, use_blur=False, use_denoiser=False)
-    assert tc.accel_kind(dt, cfg) == "chunk"
+    assert tc.accel_kind(dt, cfg, wedge_shift=0) == "chunk"
     n_px = 2 * SIZE
-    tabs = tc.build_cand_tables(dt, rt.Camera(), cfg, 0, n_px)
+    tabs = tc.build_cand_tables(dt, rt.Camera(), cfg, 0, n_px, wedge_shift=0)
     assert tabs.ids is None and tabs.chunk_ids is not None
     o, d, tile, wedge = _rays(dt, rt.Camera(), cfg, 0, n_px)
     rank_b, rank_s = _ranks(dt, o, d, cfg)
@@ -300,11 +300,12 @@ def test_chunk_walk_alone_finds_the_full_sweeps_winners(pair):
 
 def test_chunk_kind_tables_and_plain_trace():
     """A scene with more than 64 wedges gets chunk lists only from
-    build_cand_tables, and its plain trace equals the full sweep."""
+    build_cand_tables at wedge shift 0, and its plain trace equals the full
+    sweep."""
     _, dt = build_pair("strands")
     cfg = rt.RenderConfig(rays_per_pixel=512, use_blur=False, use_denoiser=False)
     n_px = 4 * SIZE
-    tabs = tc.build_cand_tables(dt, rt.Camera(), cfg, 0, n_px)
+    tabs = tc.build_cand_tables(dt, rt.Camera(), cfg, 0, n_px, wedge_shift=0)
     assert tabs.ids is None and tabs.lbs is None and tabs.chunk_ids is not None
     assert tabs.dist_ordered and tc.seg_max_count(dt, tabs) is None
     assert int(tabs.chunk_counts.min()) < dt.s_pad // tdev.SEG_ALIGN  # the cull is active

@@ -15,14 +15,16 @@ variant, all started together, with the flags of ``ops/_build.py``:
   revision, unpacked with ``git show REV:raytracingdiffusioncurves_torch/csrc/trace.cu``).
   A source whose C entry takes the scene tables ``seg_consts`` and
   ``shade_all_t`` (the revisions before the packed records) is given those;
-  the others the records.
+  the others the records.  A source whose C entry takes no ``tab_wedges``
+  (the revisions before wedge coarsening) is called without it: every case
+  launches fine tables.
 
 Cases, each one launch at the shape its path gives it (``--cases`` picks
 some): ``denoiser_off`` (seeded scene, 1024^2, 128 rpp, lists narrowed to
 the largest count), ``denoised`` (1920x1088, 8 rpp), ``dense`` (the
 lady_bug-class scene, 1920x1088, 256 rpp), ``dolphin`` (64 rpp),
 ``dense_8rpp`` (two wedges), ``chunk_kind`` (256^2, 512 rpp, chunk lists
-alone), ``portal`` (256^2, 32 rpp, full sweep and bounces).  Per round the
+alone: the tables of wedge shift 0), ``portal`` (256^2, 32 rpp, full sweep and bounces).  Per round the
 variants in order, then in reverse in the next, so that a drift of the
 card's clocks falls on all alike; each time is the mean of a few launches
 between CUDA events.  Every variant's sums must equal ``as_built``'s bit
@@ -65,6 +67,9 @@ from raytracingdiffusioncurves_torch.utils.scenes import (  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "trace_ab"
 CASES = ("denoiser_off", "denoised", "dense", "dolphin", "dense_8rpp", "chunk_kind", "portal")
+# Index, among rtdc_trace_sums' arguments after the two record pointers, of
+# the tables' wedge count (launch_args' order).
+TAB_WEDGES_ARG = 25
 INFO_KEYS = ("registers", "local_bytes", "static_smem_bytes", "dynamic_smem_bytes",
              "blocks_per_sm", "block_threads")
 
@@ -99,9 +104,9 @@ def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
         src.write_text(text)
         cmd = [_build._nvcc(), *_build.nvcc_flags("trace"), "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
+                                        text=True), lib, text)
     libs = {}
-    for name, (proc, path) in procs.items():
+    for name, (proc, path, text) in procs.items():
         log, _ = proc.communicate()
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -110,11 +115,18 @@ def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"build of {name} failed:\n{log}")
         lib = ctypes.CDLL(str(path))
         for fn, (argtypes, restype) in _build.SIGNATURES["trace"].items():
+            if fn == "rtdc_trace_sums" and not coarse(text):
+                argtypes = argtypes[:TAB_WEDGES_ARG + 2] + argtypes[TAB_WEDGES_ARG + 3:]
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
         libs[name] = lib
     return libs
+
+
+def coarse(source: str) -> bool:
+    """Whether a trace.cu's C entry takes the tables' wedge count."""
+    return "int tab_wedges" in source
 
 
 def info(lib) -> list[dict] | None:
@@ -153,7 +165,7 @@ def case(name: str):
     if name == "chunk_kind":
         scene = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, 256, 256)))
         cfg = rt.RenderConfig(rays_per_pixel=512, use_denoiser=False)
-        return scene, cam, cfg, rt.build_cand_tables(scene, cam, cfg), 256 * 256, 3
+        return scene, cam, cfg, rt.build_cand_tables(scene, cam, cfg, wedge_shift=0), 256 * 256, 3
     if name == "portal":
         scene = rt.build_device_scene(rt.load_scene_from_string(portal_weights_scene_xml(256, 256)))
         cfg = rt.RenderConfig(rays_per_pixel=32, rays_per_block=2048, use_denoiser=False)
@@ -161,11 +173,15 @@ def case(name: str):
     raise SystemExit(f"unknown case {name!r}; cases: {', '.join(CASES)}")
 
 
-def launcher(lib, records: bool, scene, cam, cfg, tables, n_px):
+def launcher(lib, records: bool, coarse: bool, scene, cam, cfg, tables, n_px):
     a, b = ((scene.walk_records, scene.shade_records) if records
             else (scene.seg_consts, scene.shade_all_t))
     out = torch.empty((5, n_px), dtype=torch.float32, device=scene.device)
     args = trace_cuda.launch_args(scene, cam, cfg, 0, 0, n_px, tables, out)
+    if not coarse:
+        if args[TAB_WEDGES_ARG] != args[TAB_WEDGES_ARG - 1]:
+            raise RuntimeError("a source without wedge coarsening cannot read coarse tables")
+        args = args[:TAB_WEDGES_ARG] + args[TAB_WEDGES_ARG + 1:]
 
     def run():
         err = lib.rtdc_trace_sums(a.data_ptr(), b.data_ptr(), *args)
@@ -202,13 +218,15 @@ def main():
     names = list(libs)
     result = {"card": smi, "variants": {}, "cases": {}}
     for n in names:
-        result["variants"][n] = {"records": "walk_records" in sources[n], "info": info(libs[n])}
+        result["variants"][n] = {"records": "walk_records" in sources[n],
+                                 "coarse": coarse(sources[n]), "info": info(libs[n])}
         print(f"[trace_ab:variant:{n}] records={result['variants'][n]['records']} "
               f"info={json.dumps(result['variants'][n]['info'])}", flush=True)
     failed = []
     for cname in args.cases.split(","):
         scene, cam, cfg, tables, n_px, reps = case(cname)
-        runs = {n: launcher(libs[n], result["variants"][n]["records"], scene, cam, cfg, tables, n_px)
+        runs = {n: launcher(libs[n], result["variants"][n]["records"],
+                            result["variants"][n]["coarse"], scene, cam, cfg, tables, n_px)
                 for n in names}
         ref = runs["as_built"]().clone()
         equal = {}
