@@ -55,9 +55,15 @@ paths through the public entry points, checking the images:
 * row-band rendering: two gloo ranks on cuda:0 (parallel/sharded.py; two
   ranks on one card, no scaling figure): the gloo collectives on CUDA
   tensors ([sharded:gloo_cuda]), the denoiser-off frame with per-band
-  tables, a progressive pass and the dense frame with the shipped UNet,
-  each bitwise equal to one process ([sharded:frame], [sharded:progressive],
-  [sharded:dense]), and the data-parallel train step (2 x 16) against the
+  tables, a progressive pass, the dense frame with the shipped UNet, a
+  zoom step of the denoised frame (the history gathered and warped) and
+  BASELINE config 5 through render_frame_sharded, each bitwise equal to one
+  process and each rank's post-processing reading its band and halo rows
+  alone, with no whole-frame collective on a resting frame
+  ([sharded:frame], [sharded:progressive], [sharded:dense],
+  [sharded:warp], [sharded:config5]: rows_processed, halo bytes); each
+  rank's post-processing timed in turns beside the one-process tail
+  ([sharded:tail]); and the data-parallel train step (2 x 16) against the
   one-process step on the 32 ([sharded:train_step]).
 
 After the build, [trace_kernel:*] prints each instantiation of the trace
@@ -1174,12 +1180,14 @@ def config5_frames(scene, cfg, tables, gl):
 
         step()
         holders[name], steps[name] = holder, step
+    first_frames = [holders["coarse"]["img"].cpu()]  # frames 0 and 1, for [sharded:config5]
     torch.cuda.synchronize()
     # a frame queues without waiting for the card: any host sync raises here
     torch.cuda.set_sync_debug_mode("error")
     steps["coarse"]()
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    first_frames.append(holders["coarse"]["img"].cpu())
     frame0 = holders["coarse"]["state"].frame
     frame_ms = {n: [] for n in routes}
     enqueue_ms = {n: [] for n in routes}
@@ -1226,7 +1234,7 @@ def config5_frames(scene, cfg, tables, gl):
     return dict(frame_ms=mean["coarse"], enqueue_ms=min(enqueue_ms["coarse"]),
                 device_ms=device_ms, idle=idle, trace_ms=min(trace_ms["coarse"]),
                 launches=launches["coarse"], chunk_frame_ms=mean["chunk"],
-                chunk_trace_ms=min(trace_ms["chunk"]))
+                chunk_trace_ms=min(trace_ms["chunk"]), first_frames=first_frames)
 
 
 def config5_lady_bug():
@@ -1280,7 +1288,9 @@ def config5_phases():
     """BASELINE config 5 on one card: [config5:setup], [config5:frame_parity],
     [config5:band_parity], [config5:path], [config5:bound],
     [config5:lady_bug] (with its [dense_stats] / [dense_bound]) and
-    [cli:config5].  Returns the trace kernel's config5_* numbers."""
+    [cli:config5].  Returns (the trace kernel's config5_* numbers, the
+    path's frames 0 and 1 on the host, which [sharded:config5] holds the
+    bands against)."""
     scene, cfg, tables, gl, setup = config5_setup()
     cam = rt.Camera()
     n_px = C5_W * C5_H
@@ -1330,7 +1340,7 @@ def config5_phases():
     phase("cli:config5", size=f"{C5_W}x{C5_H}", rpp=C5_RPP, weights="none",
           average_frame_time_ms=f"{mean_ms:.2f}", setup_ms=f"{setup_ms:.1f}",
           wall_s=f"{wall_s:.2f}", phases=json.dumps(phases), metrics=json.dumps(metrics))
-    return dict(
+    return path["first_frames"], dict(
         config5_launches=path["launches"], config5_ms=path["trace_ms"],
         config5_frame_ms=path["frame_ms"], config5_host_enqueue_ms=path["enqueue_ms"],
         config5_device_ms=path["device_ms"], config5_device_idle_share=path["idle"],
@@ -2248,6 +2258,8 @@ def train_phases():
 # ---------------------------------------------------------------------------
 
 SHARDED_RANKS, SHARDED_FRAMES = 2, 5
+TAIL_REPS = 5  # timed calls of a tail, each rank in its turn
+C5_SHARDED_FRAMES = 2  # config-5 frames of the two ranks, checked, then timed
 
 
 def main_path_config():
@@ -2255,10 +2267,158 @@ def main_path_config():
                            use_blur=True, exact_silhouettes=True, use_denoiser=False)
 
 
+def exchange_summary(log):
+    """(rows of the largest band + halo region a stage read, bytes of the
+    edge-strip exchanges, whole-frame gathers) of one frame's
+    sharded.EXCHANGE_LOG."""
+    halo = [e for e in log if e[0] == "halo"]
+    return (max((rows for _, _, rows in halo), default=0), sum(b for _, b, _ in halo),
+            sum(1 for e in log if e[0] == "gather"))
+
+
+def logged_frame(sharded, frame_fn):
+    """frame_fn() (a frame function, which clears the exchange log first)
+    with the log copied after it (before any gather for display): (its
+    result, the log)."""
+    res = frame_fn()
+    return res, list(sharded.EXCHANGE_LOG)
+
+
+def tail_in_turns(mesh, image, blur_map, state, cfg, scene, net):
+    """[sharded:tail] on one rank: the band's post-processing
+    (renderer._postprocess with sharded.band_hooks) once with its halo
+    exchanges recorded, then timed with the exchanges replayed, each rank
+    in its turn while the other waits at a barrier, so the two processes do
+    not share the card while one is timed: chained (CUDA events over TAIL_REPS calls: the host
+    enqueues ~400 small launches per tail, so this reads the host as much
+    as the card) and on the card alone (device_frame_ms: behind a sleep).
+    The collectives themselves are not in the time.  Returns (chained ms,
+    card-alone ms, rows of each band + halo region)."""
+    from raytracingdiffusioncurves_torch.parallel import sharded
+
+    regions = []
+    hooks = sharded.band_hooks(mesh)
+
+    def record(bands, halo, align=1):
+        regions.append(hooks["exchange"](bands, halo, align))
+        return regions[-1]
+
+    renderer._postprocess(image, blur_map, state, cfg, scene, None, net, exchange=record,
+                          warp=hooks["warp"])
+
+    def replay():
+        it = iter(regions)
+        return renderer._postprocess(image, blur_map, state, cfg, scene, None, net,
+                                     exchange=lambda *_: next(it), warp=hooks["warp"])
+
+    ms = device_ms = None
+    for turn in range(mesh.size()):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        if turn == mesh.get_local_rank():
+            ms, _ = cuda_ms(replay, TAIL_REPS, warm_up=True)
+            device_ms = device_frame_ms(replay)
+    torch.distributed.barrier()
+    return ms, device_ms, [r[0].shape[0] for r, _, _ in regions]
+
+
+def sharded_denoised(mesh, net):
+    """[sharded:warp] and the denoised half of [sharded:tail] on one rank:
+    the seeded 1920x1088 x 8 rpp frame with the shipped UNet, frames 0 and
+    1 at rest from the band's state, the tail of frame 2 in turns, then a
+    zoom step (per-band tables of the new camera, a non-zero flow: the
+    history gathered and warped)."""
+    from raytracingdiffusioncurves_torch.parallel import sharded
+
+    dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, DN_W, DN_H)))
+    cfg = rt.RenderConfig(rays_per_pixel=DN_RPP)
+    cam = rt.Camera()
+    tables = sharded.build_cand_tables_sharded(mesh, dscene, cam, cfg)
+    gl = sharded.seg_max_count_sharded(mesh, dscene, tables)
+    st = sharded.frame_state_sharded(mesh, rt.init_frame_state(DN_W, DN_H))
+    for _ in range(2):
+        (img, st), rest_log = logged_frame(sharded, lambda: sharded.render_frame_sharded(
+            mesh, dscene, cam, st, cfg, denoiser=net, cand_tables=tables, gather_len=gl))
+    rest = img.cpu().numpy()
+    image, bmap = sharded.trace_image_sharded(mesh, dscene, cam, cfg, st.frame, tables, gl)
+    tail = tail_in_turns(mesh, image, bmap, st, cfg, dscene, net)
+    zcam = rt.Camera(zoom_factor=0.9)
+    ztables = sharded.build_cand_tables_sharded(mesh, dscene, zcam, cfg)
+    zgl = sharded.seg_max_count_sharded(mesh, dscene, ztables)
+    moved = dataclasses.replace(st, flow=sharded.add_zoom_flow_sharded(mesh, st.flow, 1.0, 0.9))
+    require(not moved.flow_is_zero, "sharded: the zoom flow is non-zero")
+    trace_cuda.reset_launch_count()
+    conv_cuda.reset_launch_count()
+    (img, st), zoom_log = logged_frame(sharded, lambda: sharded.render_frame_sharded(
+        mesh, dscene, zcam, moved, cfg, denoiser=net, cand_tables=ztables, gather_len=zgl))
+    torch.cuda.synchronize()
+    return dict(rest=rest, rest_log=rest_log, zoom=img.cpu().numpy(), zoom_log=zoom_log,
+                prev=st.prev_image.cpu().numpy(), frame=st.frame, flow_zero=st.flow_is_zero,
+                launches=(trace_cuda.LAUNCHES, conv_cuda.LAUNCHES), tail=tail)
+
+
+def sharded_dense(mesh, net):
+    """[sharded:dense] and the dense half of [sharded:tail] on one rank: the
+    dense frame with the shipped UNet from the band's first state, then the
+    tail of that frame in turns."""
+    from raytracingdiffusioncurves_torch.parallel import sharded
+
+    cam = rt.Camera()
+    dense = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, DN_W, DN_H, "lady_bug")))
+    dcfg = rt.RenderConfig(rays_per_pixel=DENSE_RPP)
+    dtables = sharded.build_cand_tables_sharded(mesh, dense, cam, dcfg)
+    st = sharded.frame_state_sharded(mesh, rt.init_frame_state(DN_W, DN_H))
+    trace_cuda.reset_launch_count()
+    conv_cuda.reset_launch_count()
+    (img, _), log = logged_frame(sharded, lambda: sharded.render_frame_sharded(
+        mesh, dense, cam, st, dcfg, denoiser=net, cand_tables=dtables))
+    out = dict(image=img.cpu().numpy(), launches=trace_cuda.LAUNCHES,
+               conv_launches=conv_cuda.LAUNCHES, log=log)
+    image, bmap = sharded.trace_image_sharded(mesh, dense, cam, dcfg, 0, dtables)
+    out["tail"] = tail_in_turns(mesh, image, bmap, st, dcfg, dense, net)
+    return out
+
+
+def sharded_config5(mesh):
+    """[sharded:config5] on one rank: BASELINE config 5 through
+    render_frame_sharded, as run_all.py's config5 runs it: per-band tables
+    (the frame's wedge shift), narrowed by seg_max_count_sharded; frames 0
+    and 1 gathered (rank 0 keeps them), then C5_SHARDED_FRAMES timed."""
+    from raytracingdiffusioncurves_torch.parallel import sharded
+
+    cam = rt.Camera()
+    scene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, C5_W, C5_H)))
+    cfg = config5_config()
+    tables = sharded.build_cand_tables_sharded(mesh, scene, cam, cfg)
+    gl = sharded.seg_max_count_sharded(mesh, scene, tables)
+    tables = trace_cuda.narrow_cand_tables(tables, gl)
+    n_wedges = trace_cuda._grid_geom(scene, cfg, C5_W, C5_W * C5_H)[3]
+    holder = {"state": sharded.frame_state_sharded(mesh, rt.init_frame_state(C5_W, C5_H))}
+
+    def step():
+        holder["img"], holder["state"] = sharded.render_frame_sharded(
+            mesh, scene, cam, holder["state"], cfg, cand_tables=tables, gather_len=gl)
+
+    trace_cuda.reset_launch_count()
+    frames, logs = [], []
+    for _ in range(2):
+        _, log = logged_frame(sharded, step)
+        logs.append(log)
+        whole = sharded.gather_rows(mesh, holder["img"])
+        frames.append(whole.cpu().numpy() if mesh.get_local_rank() == 0 else None)
+        del whole
+    launches = trace_cuda.LAUNCHES
+    frame_ms, _ = timed_frames(step, C5_SHARDED_FRAMES)
+    return dict(frames=frames, logs=logs, launches=launches, frame_ms=frame_ms, gather_len=gl,
+                shift=trace_cuda.table_wedge_shift(tables, n_wedges))
+
+
 def sharded_rank(rank, world):
     """One gloo rank on cuda:0 (the [sharded:*] phases): the denoiser-off
-    frame with per-band tables, a progressive pass, a dense frame, the
-    data-parallel train step.  Returns host copies of its bands and numbers."""
+    frame with per-band tables, a progressive pass, the denoised frame with
+    a zoom step, the dense frame, the tails in turns, config 5, the
+    data-parallel train step.  Returns host copies of its bands and
+    numbers."""
     from raytracingdiffusioncurves_torch.parallel import sharded
 
     torch.cuda.set_device(0)
@@ -2278,13 +2438,14 @@ def sharded_rank(rank, world):
     tables = sharded.build_cand_tables_sharded(mesh, dscene, cam, cfg)
     gl = sharded.seg_max_count_sharded(mesh, dscene, tables)
     tables = trace_cuda.narrow_cand_tables(tables, gl)
-    state = rt.init_frame_state(SIZE, SIZE)
+    state = sharded.frame_state_sharded(mesh, rt.init_frame_state(SIZE, SIZE))
     trace_cuda.reset_launch_count()
-    frames = []
+    frames, logs = [], []
     for _ in range(2):
-        img, state = sharded.render_frame_sharded(mesh, dscene, cam, state, cfg,
-                                                  cand_tables=tables, gather_len=gl)
+        (img, state), log = logged_frame(sharded, lambda: sharded.render_frame_sharded(
+            mesh, dscene, cam, state, cfg, cand_tables=tables, gather_len=gl))
         frames.append(img.cpu().numpy())
+        logs.append(log)
     launches = trace_cuda.LAUNCHES
     holder = {"state": state}
 
@@ -2293,29 +2454,26 @@ def sharded_rank(rank, world):
                                                           cand_tables=tables, gather_len=gl)
 
     frame_ms, _ = timed_frames(step, SHARDED_FRAMES)
-    out["off"] = dict(frames=frames, launches=launches, gather_len=gl, frame_ms=frame_ms)
+    out["off"] = dict(frames=frames, launches=launches, gather_len=gl, frame_ms=frame_ms,
+                      logs=logs)
 
-    pstate = rt.init_frame_state(SIZE, SIZE)
+    pstate = sharded.frame_state_sharded(mesh, rt.init_frame_state(SIZE, SIZE))
     prog = rt.init_progressive_state(SIZE, SIZE // world)
-    passes = []
+    passes, plogs = [], []
     for reset in (True, False):
-        img, pstate, prog = sharded.render_frame_progressive_sharded(
-            mesh, dscene, cam, pstate, prog, cfg, reset, cand_tables=tables, gather_len=gl)
+        (img, pstate, prog), log = logged_frame(sharded, lambda: sharded.render_frame_progressive_sharded(
+            mesh, dscene, cam, pstate, prog, cfg, reset, cand_tables=tables, gather_len=gl))
         passes.append(img.cpu().numpy())
-    out["progressive"] = passes
+        plogs.append(log)
+    out["progressive"], out["progressive_logs"] = passes, plogs
     del dscene, tables
 
     net = rt.net_for_params(rt.load_params(str(WEIGHTS)))
-    dense = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, DN_W, DN_H, "lady_bug")))
-    dcfg = rt.RenderConfig(rays_per_pixel=DENSE_RPP)
-    dtables = sharded.build_cand_tables_sharded(mesh, dense, cam, dcfg)
-    trace_cuda.reset_launch_count()
-    conv_cuda.reset_launch_count()
-    img, _ = sharded.render_frame_sharded(mesh, dense, cam, rt.init_frame_state(DN_W, DN_H), dcfg,
-                                          denoiser=net, cand_tables=dtables)
-    out["dense"] = dict(image=img.cpu().numpy(), launches=trace_cuda.LAUNCHES,
-                        conv_launches=conv_cuda.LAUNCHES)
-    del dense, dtables
+    out["denoised"] = sharded_denoised(mesh, net)
+    out["dense"] = sharded_dense(mesh, net)
+    torch.cuda.empty_cache()
+    out["config5"] = sharded_config5(mesh)
+    torch.cuda.empty_cache()
 
     z = np.load(TRAIN_DIR / "batch.npz")
     half = TRAIN_BATCH // world
@@ -2329,12 +2487,42 @@ def sharded_rank(rank, world):
     return out
 
 
-def sharded_phases():
+def require_band_reads(label, ranks, logs_key, band_rows, halo, get=lambda res, k: res[k]):
+    """Every frame of each rank read only band + halo rows (its largest
+    region at most band_rows + 2 x halo) and moved no whole-frame
+    collective; returns (rows_processed per rank, halo bytes per frame)."""
+    rows, halo_bytes = [], set()
+    for r, res in enumerate(ranks):
+        sums = [exchange_summary(log) for log in get(res, logs_key)]
+        require(all(g == 0 for _, _, g in sums), f"{label}: rank {r} gathered a whole frame")
+        most = max(n for n, _, _ in sums)
+        require(0 < most <= band_rows + 2 * halo,
+                f"{label}: rank {r} read {most} rows, band {band_rows} + halo {halo} x 2")
+        rows.append(most)
+        halo_bytes.update(b for _, b, _ in sums)
+    return rows, sorted(halo_bytes)
+
+
+def band_slice_warp(image, flow_field, r0, rows):
+    """The band's slice of warp_separable's row product alone (the route
+    parallel/sharded.py does not take): the column product of the whole
+    history, then the row product for rows r0 .. r0 + rows only."""
+    h, w = image.shape[0], image.shape[1]
+    cols = torch.arange(w, dtype=torch.float32, device=image.device) + flow_field[0, :, 0]
+    src = torch.arange(h, dtype=torch.float32, device=image.device) + flow_field[:, 0, 1]
+    mx = flow._resample_matrix(cols, w)
+    my = flow._resample_matrix(src[r0 : r0 + rows], h)
+    return torch.einsum("hvc,hu->uvc", torch.einsum("hwc,wv->hvc", image, mx), my)
+
+
+def sharded_phases(smi, config5_frames):
     """[sharded:*]: two gloo ranks on one card against one process: the
     denoiser-off frame (1024^2 x 128 rpp, per-band tables), a progressive
-    pass and the dense frame with the shipped UNet bitwise; the data-parallel
-    train step (2 x 16) against the one-process step on the 32.  Two ranks
-    share one card here: their times are no scaling figure."""
+    pass, the denoised frame's zoom step and the dense frame with the
+    shipped UNet, config 5, all bitwise, each rank's post-processing read
+    from its band and halo alone; the tails timed in turns; the
+    data-parallel train step (2 x 16) against the one-process step on the
+    32.  Two ranks share one card here: their times are no scaling figure."""
     from raytracingdiffusioncurves_torch.parallel import sharded
 
     t0 = time.perf_counter()
@@ -2349,6 +2537,7 @@ def sharded_phases():
     dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, SIZE, SIZE)))
     cfg = main_path_config()
     cam = rt.Camera()
+    radius = blur.blur_radius(dscene.max_blur)
     tables = rt.build_cand_tables(dscene, cam, cfg)
     gl = rt.seg_max_count(dscene, tables)
     tables = trace_cuda.narrow_cand_tables(tables, gl)
@@ -2360,10 +2549,13 @@ def sharded_phases():
             require(np.array_equal(res["off"]["frames"][i], whole[r * half : (r + 1) * half]),
                     f"sharded: frame {i}, rank {r}'s band != one process")
     require(all(res["off"]["launches"] == 2 for res in ranks), "sharded: one trace launch per frame")
+    rows, hbytes = require_band_reads("sharded:frame", ranks, "logs", half, radius,
+                                      lambda res, k: res["off"][k])
     phase("sharded:frame", size=f"{SIZE}x{SIZE}", rpp=RPP, frames=2, bands=SHARDED_RANKS,
           band_rows=half, gather_len=[res["off"]["gather_len"] for res in ranks],
           one_process_gather_len=gl, equal="bitwise",
           trace_launches_per_rank=[res["off"]["launches"] for res in ranks],
+          rows_processed=rows, halo_bytes_per_frame=hbytes, whole_frame_collectives=0,
           ms_per_frame_two_ranks_one_card=f"{ranks[0]['off']['frame_ms']:.3f}")
 
     pstate = rt.init_frame_state(SIZE, SIZE)
@@ -2375,25 +2567,116 @@ def sharded_phases():
         for r, res in enumerate(ranks):
             require(np.array_equal(res["progressive"][i], whole[r * half : (r + 1) * half]),
                     f"sharded: progressive pass {i}, rank {r}'s band != one process")
-    phase("sharded:progressive", passes=2, equal="bitwise")
+    rows, hbytes = require_band_reads("sharded:progressive", ranks, "progressive_logs", half,
+                                      radius)
+    phase("sharded:progressive", passes=2, equal="bitwise", rows_processed=rows,
+          halo_bytes_per_frame=hbytes)
     del dscene, tables
 
     net = rt.net_for_params(rt.load_params(str(WEIGHTS)))
-    dense = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, DN_W, DN_H, "lady_bug")))
-    dcfg = rt.RenderConfig(rays_per_pixel=DENSE_RPP)
-    img, _ = rt.render_frame(dense, cam, rt.init_frame_state(DN_W, DN_H), dcfg, denoiser=net,
-                             cand_tables=rt.build_cand_tables(dense, cam, dcfg))
-    whole = img.cpu().numpy()
+    unet_halo = denoiser.band_halo(net)
     dh = DN_H // SHARDED_RANKS
+    bands = [slice(r * dh, (r + 1) * dh) for r in range(SHARDED_RANKS)]
+
+    # the denoised frame: two resting frames, the tail, a zoom step
+    dscene = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, DN_W, DN_H)))
+    dcfg = rt.RenderConfig(rays_per_pixel=DN_RPP)
+    dtables = rt.build_cand_tables(dscene, cam, dcfg)
+    dgl = rt.seg_max_count(dscene, dtables)
+    st = rt.init_frame_state(DN_W, DN_H)
+    for _ in range(2):
+        img, st = rt.render_frame(dscene, cam, st, dcfg, denoiser=net, cand_tables=dtables,
+                                  gather_len=dgl)
+    rest = img.cpu().numpy()
+    image, bmap = rt.trace_image(dscene, cam, dcfg, st.frame, dtables, dgl)
+    def whole_tail():
+        return renderer._postprocess(image, bmap, st, dcfg, dscene, None, net)
+
+    tail_ms, _ = cuda_ms(whole_tail, TAIL_REPS, warm_up=True)
+    tail_device_ms = device_frame_ms(whole_tail)
+    zcam = rt.Camera(zoom_factor=0.9)
+    moved = dataclasses.replace(st, flow=rt.add_zoom_flow(st.flow, 1.0, 0.9))
+    whole_warp = flow.warp_separable(moved.prev_image, moved.flow)
+    slice_bitwise = [torch.equal(band_slice_warp(moved.prev_image, moved.flow, b.start, dh),
+                                 whole_warp[b]) for b in bands]
+    img, st = rt.render_frame(dscene, zcam, moved, dcfg, denoiser=net,
+                              cand_tables=rt.build_cand_tables(dscene, zcam, dcfg))
+    zoom, prev = img.cpu().numpy(), st.prev_image.cpu().numpy()
     for r, res in enumerate(ranks):
-        require(np.array_equal(res["dense"]["image"], whole[r * dh : (r + 1) * dh]),
+        d = res["denoised"]
+        require(np.array_equal(d["rest"], rest[bands[r]]),
+                f"sharded: denoised frame 1, rank {r}'s band != one process")
+        require(np.array_equal(d["zoom"], zoom[bands[r]]) and np.array_equal(d["prev"], prev[bands[r]]),
+                f"sharded: zoom frame, rank {r}'s band or band state != one process")
+        require(d["frame"] == st.frame and d["flow_zero"] and d["launches"] == (1, 9),
+                f"sharded: zoom frame state / launches {d['frame']} {d['launches']}")
+        require(exchange_summary(d["zoom_log"])[2] == 2 and exchange_summary(d["rest_log"])[2] == 0,
+                "sharded: the history is gathered on the moving frame alone")
+    zoom_rows, zoom_bytes, _ = exchange_summary(ranks[0]["denoised"]["zoom_log"])
+    gather_bytes = sum(b for k, b, _ in ranks[0]["denoised"]["zoom_log"] if k == "gather")
+    rest_rows, rest_bytes = require_band_reads("sharded:warp", ranks, "rest_log", dh, unet_halo,
+                                               lambda res, k: [res["denoised"][k]])
+    phase("sharded:warp", size=f"{DN_W}x{DN_H}", rpp=DN_RPP, denoiser="shipped UNet",
+          zoom="1.0->0.9", equal="bitwise", route="whole_frame_warp_band_kept",
+          band_slice_of_row_product_bitwise=slice_bitwise, history_gather_bytes=gather_bytes,
+          moving_frame_halo_bytes=zoom_bytes, resting_frame_halo_bytes=rest_bytes,
+          rows_processed=rest_rows, unet_halo=unet_halo, blur_radius=radius)
+
+    # the dense frame
+    dense = rt.build_device_scene(rt.load_scene_from_string(dense_scene_xml(0, DN_W, DN_H, "lady_bug")))
+    ncfg = rt.RenderConfig(rays_per_pixel=DENSE_RPP)
+    ntables = rt.build_cand_tables(dense, cam, ncfg)
+    nst = rt.init_frame_state(DN_W, DN_H)
+    img, _ = rt.render_frame(dense, cam, nst, ncfg, denoiser=net, cand_tables=ntables)
+    whole = img.cpu().numpy()
+    for r, res in enumerate(ranks):
+        require(np.array_equal(res["dense"]["image"], whole[bands[r]]),
                 f"sharded: dense frame, rank {r}'s band != one process")
         require(res["dense"]["launches"] == 1 and res["dense"]["conv_launches"] == 9,
                 f"sharded: dense launches {res['dense']['launches']}, "
                 f"{res['dense']['conv_launches']}")
+    rows, hbytes = require_band_reads("sharded:dense", ranks, "log", dh, unet_halo,
+                                      lambda res, k: [res["dense"][k]])
     phase("sharded:dense", size=f"{DN_W}x{DN_H}", rpp=DENSE_RPP, denoiser="shipped UNet",
-          band_rows=dh, equal="bitwise")
-    del dense
+          band_rows=dh, equal="bitwise", rows_processed=rows, halo_bytes_per_frame=hbytes,
+          whole_frame_collectives=0)
+    image, bmap = rt.trace_image(dense, cam, ncfg, 0, ntables)
+
+    def dense_tail():
+        return renderer._postprocess(image, bmap, nst, ncfg, dense, None, net)
+
+    dense_tail_ms, _ = cuda_ms(dense_tail, TAIL_REPS, warm_up=True)
+    dense_tail_device_ms = device_frame_ms(dense_tail)
+    del dense, ntables, image, bmap
+    tails = {k: [res[k]["tail"] for res in ranks] for k in ("denoised", "dense")}
+    phase("sharded:tail", card=json.dumps(smi), in_turns=True, reps=TAIL_REPS,
+          collectives="not timed (replayed)",
+          denoised_rank_ms=",".join(f"{t[0]:.3f}" for t in tails["denoised"]),
+          denoised_rank_card_alone_ms=",".join(f"{t[1]:.3f}" for t in tails["denoised"]),
+          denoised_one_process_whole_frame_ms=f"{tail_ms:.3f}",
+          denoised_one_process_card_alone_ms=f"{tail_device_ms:.3f}",
+          denoised_rows=[t[2] for t in tails["denoised"]],
+          dense_rank_ms=",".join(f"{t[0]:.3f}" for t in tails["dense"]),
+          dense_rank_card_alone_ms=",".join(f"{t[1]:.3f}" for t in tails["dense"]),
+          dense_one_process_whole_frame_ms=f"{dense_tail_ms:.3f}",
+          dense_one_process_card_alone_ms=f"{dense_tail_device_ms:.3f}",
+          dense_rows=[t[2] for t in tails["dense"]])
+
+    # config 5 through render_frame_sharded
+    c5 = [res["config5"] for res in ranks]
+    for i, want in enumerate(config5_frames):
+        require(np.array_equal(c5[0]["frames"][i], want.numpy()),
+                f"sharded: config-5 frame {i}, gathered != one process")
+    require(all(c["launches"] == 2 for c in c5), "sharded: config 5, one trace launch per frame")
+    require(all(c["shift"] == 2 for c in c5), f"sharded: config-5 band shifts {[c['shift'] for c in c5]}")
+    c5h = C5_H // SHARDED_RANKS
+    rows, hbytes = require_band_reads("sharded:config5", ranks, "logs", c5h, radius,
+                                      lambda res, k: res["config5"][k])
+    phase("sharded:config5", size=f"{C5_W}x{C5_H}", rpp=C5_RPP, frames=2, band_rows=c5h,
+          equal="bitwise", wedge_shift_per_band=[c["shift"] for c in c5],
+          gather_len=[c["gather_len"] for c in c5], rows_processed=rows,
+          halo_bytes_per_frame=hbytes, last_ray_id_rank_1=C5_W * C5_H * C5_RPP - 1,
+          ms_per_frame_two_ranks_one_card=",".join(f"{c['frame_ms']:.3f}" for c in c5))
 
     z = np.load(TRAIN_DIR / "batch.npz")
     batch = {k: torch.from_numpy(z[k]).cuda() for k in z.files}
@@ -2416,7 +2699,16 @@ def sharded_phases():
           bar_loss="<=1e-3")
     return dict(sharded_frame_ms_two_ranks_one_card=ranks[0]["off"]["frame_ms"],
                 sharded_launches_per_rank=ranks[0]["off"]["launches"],
-                sharded_train_grad_rel_l2=worst)
+                sharded_train_grad_rel_l2=worst,
+                sharded_denoised_tail_rank_ms=[t[0] for t in tails["denoised"]],
+                sharded_denoised_tail_rank_device_ms=[t[1] for t in tails["denoised"]],
+                sharded_denoised_tail_one_process_ms=tail_ms,
+                sharded_denoised_tail_one_process_device_ms=tail_device_ms,
+                sharded_dense_tail_rank_ms=[t[0] for t in tails["dense"]],
+                sharded_dense_tail_rank_device_ms=[t[1] for t in tails["dense"]],
+                sharded_dense_tail_one_process_ms=dense_tail_ms,
+                sharded_dense_tail_one_process_device_ms=dense_tail_device_ms,
+                sharded_config5_ms_two_ranks_one_card=[c["frame_ms"] for c in c5])
 
 
 def main():
@@ -2556,10 +2848,10 @@ def main():
 
     conv_entry, denoised_trace = denoise_phases(smi)
     dense_trace = dense_phases()
-    config5_trace = config5_phases()
+    config5_frames_0_1, config5_trace = config5_phases()
     session_trace = session_phases()
     train_trace, train_conv = train_phases()
-    sharded_trace = sharded_phases()
+    sharded_trace = sharded_phases(smi, config5_frames_0_1)
     conv_entry.update(train_conv)
 
     print(json.dumps({"kernels": [{

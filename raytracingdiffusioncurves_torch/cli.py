@@ -14,8 +14,9 @@ with ``--device auto|cpu`` in place of its ``--backend``/``--device``:
 
 ``--devices N`` (N > 1) renders the frame in N row bands, one spawned rank
 per device (``parallel/sharded.py``): rank i on ``cuda:i`` with NCCL, or N
-gloo ranks on the CPU with ``--device cpu``.  Rank 0 prints and writes the
-image.
+gloo ranks on the CPU with ``--device cpu``.  Each rank keeps its band of
+the frame state; rank 0 prints and writes the image, and ``--save-session``
+writes the whole frame's history, gathered from the bands.
 """
 
 from __future__ import annotations
@@ -187,6 +188,8 @@ def _render(args, device, mesh=None) -> int:
 
         state, camera, _ = load_session(args.resume, device=device)
         say(f"resumed at frame {state.frame} from {args.resume}")
+    if mesh is not None:
+        state = sharded.frame_state_sharded(mesh, state)  # this rank's band
 
     # The learned denoiser, built once: an explicit path wins; by default the
     # shipped UNet, so `use_denoiser` means the trained model out
@@ -268,10 +271,13 @@ def _render(args, device, mesh=None) -> int:
         say(timer.report())
         say(metrics.dump())
 
-    if args.save_session and lead:
+    if args.save_session:
         from .utils.checkpoint import save_session
 
-        print(f"saved session to {save_session(args.save_session, state, camera)}")
+        if mesh is not None:  # the file holds the whole frame's history
+            state = sharded.gather_frame_state(mesh, state)
+        if lead:
+            print(f"saved session to {save_session(args.save_session, state, camera)}")
 
     if mesh is not None:
         image = sharded.gather_rows(mesh, image)

@@ -333,12 +333,76 @@ def net_for_params(params, device=None) -> nn.Module:
     return net.to(resolve_device(device)).requires_grad_(False)
 
 
+def _extent_conv(xs, ks, b, stride=1, relu=True, upsample=None) -> torch.Tensor:
+    """``conv3x3``'s wiring on row extents: each input pixel holds (first,
+    last) of the input rows its value depends on; each output pixel gets
+    the min and max over the taps it reads (SAME padding, stride, nearest 2x
+    upsample as the kernel), the padding reading nothing.  Kernels and bias
+    are ignored."""
+    del ks, b, relu
+    upsample = tuple(upsample) if upsample is not None else (False,) * len(xs)
+    lo = hi = None
+    for x, up in zip(xs, upsample):
+        if up:
+            x = x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+        h_out, top, bottom = conv_cuda.same_padding(x.shape[0], stride)
+        w_out, left, right = conv_cuda.same_padding(x.shape[1], stride)
+        pads = (left, right, top, bottom)
+        xlo = F.pad(x[..., 0], pads, value=math.inf)
+        xhi = F.pad(x[..., 1], pads, value=-math.inf)
+        for dy in range(3):
+            for dx in range(3):
+                win = (slice(dy, dy + (h_out - 1) * stride + 1, stride),
+                       slice(dx, dx + (w_out - 1) * stride + 1, stride))
+                lo = xlo[win] if lo is None else torch.minimum(lo, xlo[win])
+                hi = xhi[win] if hi is None else torch.maximum(hi, xhi[win])
+    return torch.stack([lo, hi], dim=-1)
+
+
+def receptive_field(model: nn.Module) -> tuple[int, int]:
+    """(rows above, rows below) of the network's input that one output row
+    of ``model.residual`` reads, worked out from its layers: the residual
+    runs on row extents through ``_extent_conv`` on a 64 x 4 input, and the
+    widest reach over every output row (every phase of the stride-2 grids)
+    is taken.  The UNet: (15, 18); the plain CNN of depth d: (d + 1, d + 1)."""
+    n = 64
+    rows = torch.arange(n, dtype=torch.float32)
+    x = torch.stack([rows, rows], dim=-1)[:, None, :].expand(n, 4, 2)
+    with torch.no_grad():
+        ext = model.residual(x, _extent_conv)[:, 0]
+    return int((rows - ext[:, 0]).max()), int((ext[:, 1] - rows).max())
+
+
+# A row band's region for ``apply_denoiser`` starts and ends on a multiple
+# of BAND_ALIGN rows of the frame (or at its top or bottom), so that the
+# UNet's two stride-2 levels keep the whole frame's grids.
+BAND_ALIGN = 4
+
+
+def band_halo(model: nn.Module) -> int:
+    """Rows of the frame a row band needs on each side for ``apply_denoiser``
+    to give its rows bitwise as on the whole frame: the receptive field's
+    wider side plus the bilateral's radius (the analytic input is the
+    bilateral's output), rounded up to a multiple of BAND_ALIGN.  Cached
+    per architecture; 20 for the UNet."""
+    depth = getattr(model, "depth", None)
+    key = (type(model).__name__, depth)
+    if key not in _BAND_HALOS:
+        reach = max(receptive_field(model)) + denoise_ops.BILATERAL_RADIUS
+        _BAND_HALOS[key] = -(-reach // 4) * 4
+    return _BAND_HALOS[key]
+
+
+_BAND_HALOS: dict[tuple, int] = {}
+
+
 def _reflect_pad(v: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     """(H, W, C) reflect-padded by ph rows below and pw columns right."""
     return F.pad(v.permute(2, 0, 1)[None], (0, pw, 0, ph), mode="reflect")[0].permute(1, 2, 0)
 
 
-def _apply_denoiser(model, image, warped_prev, blur_map, mix, noise, frame, conv):
+def _apply_denoiser(model, image, warped_prev, blur_map, mix, noise, frame, conv,
+                    halo=(0, 0)):
     """apply_denoiser with the convolution function named: ``conv3x3`` (the
     dispatch) on every normal call, ``conv3x3_plain`` where a check holds the
     kernel route against the plain one on the same device."""
@@ -355,7 +419,10 @@ def _apply_denoiser(model, image, warped_prev, blur_map, mix, noise, frame, conv
     args = [noisy, prev, aux, analytic]
     if (ph or pw) and isinstance(model, UNetDenoiser):
         args = [_reflect_pad(v, ph, pw) for v in args]
-    pred = model(*[v[None] for v in args], conv=conv)[0, :h, :w]
+    top, bottom = halo
+    rows = h - top - bottom
+    pred = model(*[v[None] for v in args], conv=conv)[0, top : top + rows, :w]
+    image = image[top : top + rows]
     alpha = torch.ones(image.shape[:2] + (1,), dtype=torch.float32, device=image.device)
     denoised = torch.cat([pred, alpha], dim=-1)
     return denoised + (image - denoised) * (1.0 - mix)
@@ -369,11 +436,21 @@ def apply_denoiser(
     mix: float = 1.0,
     noise: float = 0.0,
     frame: int | None = None,
+    halo: tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """Inference wrapper matching the blendFactor semantics
     (optixHello.cpp:1131): mix=1 -> fully denoised.  ``model`` holds its
     weights (net_for_params).  ``frame`` is a host int: on frame 0 there is
     no history, so the warped-previous input falls back to the bilateral of
-    the current frame (the analytic pass does the same, ops/denoise.py)."""
+    the current frame (the analytic pass does the same, ops/denoise.py).
+
+    ``halo`` (rows above, rows below): the inputs are a row band of a frame
+    with that many of the frame's rows on each side, and the result is the
+    band's rows alone, bitwise those of the whole frame's call.  A side
+    holds at least ``band_halo(model)`` rows or all the rows up to the
+    frame's edge, and for the UNet the region starts on a multiple of
+    BAND_ALIGN rows of the frame and is a multiple of BAND_ALIGN rows high
+    unless it ends at the frame's bottom (where the reflect pad then
+    applies, as on the whole frame)."""
     return _apply_denoiser(model, image, warped_prev, blur_map, mix, noise, frame,
-                           conv_cuda.conv3x3)
+                           conv_cuda.conv3x3, halo)

@@ -108,6 +108,18 @@ def normalize_sums(color_sum, weight_sum, blur_sum, config: RenderConfig):
     return image, blur_map
 
 
+def _whole_frame(tensors, halo, align=1):
+    """The tail's ``exchange`` on one device: the whole frame has no rows
+    beyond its edges, so every tensor is its own region."""
+    del halo, align
+    return tensors, 0, 0
+
+
+def _warp_whole(state: FrameState) -> torch.Tensor:
+    """The tail's ``warp`` on one device: the history warped by the flow."""
+    return flow_ops.warp_separable(state.prev_image, state.flow)
+
+
 def _postprocess(
     image,
     blur_map,
@@ -116,12 +128,24 @@ def _postprocess(
     scene: DeviceScene,
     max_blur_radius: int | None,
     denoiser: torch.nn.Module | None,
+    exchange=_whole_frame,
+    warp=_warp_whole,
 ):
     """Denoise + blur tail shared by render_frame and the progressive path.
     Returns (display image, next prev_image).  The blur always runs: for an
     all-zero blur map it returns the image exactly, so skipping it (one host
-    sync per frame) would change no value."""
+    sync per frame) would change no value.
+
+    The hooks let a row band of a frame run the same tail
+    (parallel/sharded.py): ``exchange(tensors, halo, align=1)`` returns
+    (regions, rows above, rows below), each tensor with at least ``halo``
+    rows of the frame on each side (fewer only where the frame's top or
+    bottom comes first), the region starting and ending on a multiple of
+    ``align`` rows of the frame or at its edge; ``warp(state)`` returns the
+    band's rows of the warped history.  Each stage then computes the band's
+    rows alone, bitwise those of the whole frame."""
     if config.use_denoiser:
+        warped = state.prev_image if state.flow_is_zero else warp(state)
         if denoiser is not None:
             if not isinstance(denoiser, torch.nn.Module):
                 raise TypeError(
@@ -131,20 +155,18 @@ def _postprocess(
             # Learned denoiser (models/denoiser.py) with the reference's
             # temporal input layout: current frame + flow-warped previous
             # output (optixHello.cpp:1115-1127).
-            warped = state.prev_image
-            if not state.flow_is_zero:
-                warped = flow_ops.warp_separable(state.prev_image, state.flow)
+            (image, warped, blur_in), top, bottom = exchange(
+                [image, warped, blur_map], dn.band_halo(denoiser), dn.BAND_ALIGN)
             image = dn.apply_denoiser(
-                denoiser, image, warped, blur_map,
+                denoiser, image, warped, blur_in,
                 mix=config.corrected_image_mix,
                 noise=dn.noise_level(config.rays_per_pixel),
-                frame=state.frame,
+                frame=state.frame, halo=(top, bottom),
             )
         else:
-            image = denoise_ops.temporal_denoise(
-                image, state.prev_image, state.flow, state.frame,
-                config.corrected_image_mix, state.flow_is_zero,
-            )
+            (image,), top, bottom = exchange([image], denoise_ops.BILATERAL_RADIUS)
+            image = denoise_ops.temporal_blend(
+                image, warped, state.frame, config.corrected_image_mix, halo=(top, bottom))
     next_prev = image
     if config.use_blur:
         radius = max_blur_radius
@@ -153,7 +175,8 @@ def _postprocess(
         if radius is None:
             radius = blur_ops.blur_radius(scene.max_blur)
         if radius > 0:
-            image = blur_ops.variable_gaussian_blur(image, blur_map, radius)
+            (image, blur_in), top, bottom = exchange([image, blur_map], radius)
+            image = blur_ops.variable_gaussian_blur(image, blur_in, radius, halo=(top, bottom))
     return image, next_prev
 
 

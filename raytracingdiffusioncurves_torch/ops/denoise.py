@@ -24,7 +24,7 @@ from . import flow as flow_ops
 
 # Temporal accumulation factor: new = lerp(history, current, TEMPORAL_ALPHA)
 TEMPORAL_ALPHA = 0.2
-_BILATERAL_RADIUS = 2
+BILATERAL_RADIUS = 2
 _BILATERAL_SIGMA_SPACE = 1.5
 _BILATERAL_SIGMA_COLOR = 0.1
 
@@ -47,7 +47,7 @@ def spatial_bilateral(image: torch.Tensor, bf16_weights: bool = True) -> torch.T
     accumulators stay float32, so on flat regions every tap carries the
     identical (quantized) weight and accum / wsum is exact.  False runs the
     whole filter in float32."""
-    r = _BILATERAL_RADIUS
+    r = BILATERAL_RADIUS
     inv_ss = 1.0 / (2.0 * _BILATERAL_SIGMA_SPACE**2)
     inv_sc = 1.0 / (2.0 * _BILATERAL_SIGMA_COLOR**2)
     h, w, c = image.shape[-3:]
@@ -96,8 +96,22 @@ def temporal_denoise(
     int: on frame 0 there is no history and the spatial result stands alone.
     ``flow_is_zero``: the caller knows the flow is all zero, so the warp (an
     exact identity then) is skipped."""
-    spatial = spatial_bilateral(image)
     warped = prev_image if flow_is_zero else flow_ops.warp_separable(prev_image, flow)
+    return temporal_blend(image, warped, frame, mix)
+
+
+def temporal_blend(image: torch.Tensor, warped: torch.Tensor, frame: int, mix: float = 1.0,
+                   halo: tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """``temporal_denoise`` on already-warped history ``warped``.
+
+    ``halo`` (rows above, rows below): ``image`` is a row band of a frame
+    with that many of the frame's rows on each side (``BILATERAL_RADIUS``
+    rows, or up to the frame's edge), ``warped`` the band alone; the result
+    is the band's rows, bitwise those of the whole frame's pass."""
+    top, bottom = halo
+    rows = image.shape[0] - top - bottom
+    spatial = spatial_bilateral(image)[top : top + rows]
+    image = image[top : top + rows]
     alpha = TEMPORAL_ALPHA if frame > 0 else 1.0
     denoised = warped + (spatial - warped) * alpha
     blend_factor = 1.0 - mix  # 0 => fully denoised (reference default)

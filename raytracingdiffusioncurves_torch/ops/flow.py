@@ -26,16 +26,21 @@ def zero_flow(height: int, width: int, device=None) -> torch.Tensor:
     return torch.zeros((height, width, 2), dtype=torch.float32, device=resolve_device(device))
 
 
-def add_zoom_flow(flow: torch.Tensor, old_zoom: float, new_zoom: float) -> torch.Tensor:
+def add_zoom_flow(flow: torch.Tensor, old_zoom: float, new_zoom: float, row0: int = 0,
+                  height: int | None = None) -> torch.Tensor:
     """Radial flow for a zoom change (helperKernels.cu:175-185, corrected).
 
     World x of pixel col is (col - w/2) * zoom + off; the same world point was
     at (x - off) / old_zoom + w/2 in the previous frame, so the displacement
-    is (col - w/2) * (new_zoom / old_zoom - 1)."""
+    is (col - w/2) * (new_zoom / old_zoom - 1).  ``flow`` may be a row band:
+    rows [row0, row0 + its rows) of a frame ``height`` rows high (None: the
+    whole frame), each row the same values as the whole frame's."""
     h, w = flow.shape[0], flow.shape[1]
+    height = h if height is None else height
     scale = new_zoom / old_zoom - 1.0
     cols = (torch.arange(w, dtype=torch.float32, device=flow.device) - w // 2) * scale
-    rows = (torch.arange(h, dtype=torch.float32, device=flow.device) - h // 2) * scale
+    rows = (torch.arange(row0, row0 + h, dtype=torch.float32, device=flow.device)
+            - height // 2) * scale
     return flow + torch.stack([cols[None, :].expand(h, w), rows[:, None].expand(h, w)], dim=-1)
 
 
@@ -73,9 +78,17 @@ def warp_separable(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     for the card every frame, so this function always runs the products and
     the renderer, which knows on the host when the flow is zero
     (``FrameState.flow_is_zero``), skips the call instead."""
+    return warp_separable_profiles(image, flow[0, :, 0], flow[:, 0, 1])
+
+
+def warp_separable_profiles(image: torch.Tensor, flow_x: torch.Tensor,
+                            flow_y: torch.Tensor) -> torch.Tensor:
+    """``warp_separable`` from the flow's two profiles: ``flow_x`` (W,) the
+    column displacement (any row of the field), ``flow_y`` (H,) the row
+    displacement of every row of the frame."""
     h, w = image.shape[0], image.shape[1]
-    cols = torch.arange(w, dtype=torch.float32, device=image.device) + flow[0, :, 0]
-    rows = torch.arange(h, dtype=torch.float32, device=image.device) + flow[:, 0, 1]
+    cols = torch.arange(w, dtype=torch.float32, device=image.device) + flow_x
+    rows = torch.arange(h, dtype=torch.float32, device=image.device) + flow_y
     mx = _resample_matrix(cols, w)  # (W, W)
     my = _resample_matrix(rows, h)  # (H, H)
     hp = torch.einsum("hwc,wv->hvc", image, mx)

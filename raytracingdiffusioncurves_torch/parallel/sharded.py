@@ -16,21 +16,32 @@ its counterpart in ``torch.distributed``, one process (rank) per device:
   slot-mode lists' certified length as the max over ranks, so every rank
   narrows alike;
 * post-processing (the denoiser and the variable blur, whose windows cross
-  band edges) runs the shared ``renderer._postprocess`` on the whole frame:
-  each rank gathers the band images and blur maps (``all_gather``) and
-  repeats it, then returns its own band.  The result is bitwise that of one
-  device; the cost (the post-processing repeated on every rank) is where a
-  halo exchange of the filters' radius would go.  The JAX package instead
-  post-processes the row-sharded image through XLA's halo exchange.
+  band edges) is the one-device tail, ``renderer._postprocess``, run on the
+  band with this module's hooks: each filter reads the band plus the rows
+  of the frame its window reaches (its halo: the blur's radius, the
+  bilateral's 2, the UNet's receptive field plus 2 rounded to a multiple of
+  4, ``denoiser.band_halo``), which the neighbours send as fixed-size edge
+  strips (``_with_halo``, one ``all_gather``), with none past the frame's
+  top and bottom, where each filter pads as on the whole frame.  The
+  denoiser's region is widened to start and end on a multiple of 4 rows of
+  the frame, so the UNet's stride-2 grids are the whole frame's on a band
+  of any height.  So every value is bitwise the one-device tail's.  The
+  JAX package gets the same from XLA's halo exchanges on the row-sharded
+  image;
+* the result and the ``FrameState`` stay row-sharded: each rank holds its
+  band of the image, the history and the flow (``frame_state_sharded``);
+  the history is gathered only on frames whose flow is non-zero, whose warp
+  reads source rows from the whole frame.  ``gather_rows`` and
+  ``gather_frame_state`` assemble the whole frame for display and IO.
 
 ``make_mesh`` wraps the process group as a 1-D ``DeviceMesh`` named
 ``rows``.  Every rank calls each function of this module with the same
 arguments (they hold collectives).  The collective backend is the caller's
 explicit choice (``spawn_ranks(backend=)``): NCCL when each rank has its own
-card, gloo on the CPU or for ranks that share one card.  ``gather_rows``
-assembles a band-sharded tensor for display or IO.  The data-parallel
-denoiser train step is ``models.denoiser.train_step(group=group(mesh))``,
-each rank passing its shard of the batch.
+card, gloo on the CPU or for ranks that share one card; the exchanges are
+all_gathers, which both take on CUDA tensors.  The data-parallel denoiser
+train step is ``models.denoiser.train_step(group=group(mesh))``, each rank
+passing its shard of the batch.
 """
 
 from __future__ import annotations
@@ -47,8 +58,17 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import Camera, RenderConfig
 from ..models import renderer
+from ..ops import flow as flow_ops
 from ..ops import trace_cuda
 from ..scene.device import DeviceScene
+
+# What this rank's collectives moved since its last frame began (each frame
+# function clears it first), in order: ("halo", bytes received, rows of the
+# band + halo region built) for each edge-strip exchange, ("gather", bytes
+# received, rows) for each whole-frame all_gather.  chip_smoke.py and the
+# tests read it to show what a frame moves and which rows its
+# post-processing read.
+EXCHANGE_LOG: list[tuple[str, int, int]] = []
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = "rows",
@@ -64,17 +84,18 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "rows",
     return DeviceMesh.from_group(dist.group.WORLD, device_type, mesh_dim_names=(axis_name,))
 
 
-def _local_rows(mesh: DeviceMesh, scene: DeviceScene) -> int:
-    h = scene.height
+def _local_rows(mesh: DeviceMesh, height: int) -> int:
+    """Rows of each band: the height over the mesh size, which must divide
+    it."""
     n = mesh.size()
-    if h % n != 0:
-        raise ValueError(f"image height {h} not divisible by mesh size {n}")
-    return h // n
+    if height % n != 0:
+        raise ValueError(f"image height {height} not divisible by mesh size {n}")
+    return height // n
 
 
 def _band(mesh: DeviceMesh, scene: DeviceScene) -> tuple[int, int]:
     """(first pixel, pixel count) of this rank's band."""
-    n_px = _local_rows(mesh, scene) * scene.width
+    n_px = _local_rows(mesh, scene.height) * scene.width
     return mesh.get_local_rank() * n_px, n_px
 
 
@@ -118,7 +139,7 @@ def trace_sums_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
     one-device sums.  ``cand_tables``: ``build_cand_tables_sharded`` output
     for THIS camera (None builds the band's tables in-frame, as trace_image
     does); ``gather_len``: ``seg_max_count_sharded``'s value."""
-    rows = _local_rows(mesh, scene)
+    rows = _local_rows(mesh, scene.height)
     w = scene.width
     px_start, n_px = _band(mesh, scene)
     if cand_tables is None:
@@ -136,30 +157,126 @@ def trace_image_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
     return renderer.normalize_sums(*sums, config)
 
 
+def _all_gather(mesh: DeviceMesh, t: torch.Tensor, kind: str, rows: int) -> list[torch.Tensor]:
+    """Every rank's ``t`` (the same shape on all), logged in EXCHANGE_LOG."""
+    parts = [torch.empty_like(t) for _ in range(mesh.size())]
+    dist.all_gather(parts, t.contiguous(), group=group(mesh))
+    EXCHANGE_LOG.append((kind, mesh.size() * t.numel() * t.element_size(), rows))
+    return parts
+
+
 def gather_rows(mesh: DeviceMesh, band: torch.Tensor) -> torch.Tensor:
     """The whole frame from every rank's row band (an all_gather, on every
     rank), for display and IO."""
-    parts = [torch.empty_like(band) for _ in range(mesh.size())]
-    dist.all_gather(parts, band.contiguous(), group=group(mesh))
-    return torch.cat(parts, dim=0)
+    return torch.cat(_all_gather(mesh, band, "gather", band.shape[0] * mesh.size()), dim=0)
 
 
-def _band_of(mesh: DeviceMesh, image: torch.Tensor) -> torch.Tensor:
-    rows = image.shape[0] // mesh.size()
+def _halo_rows(rank: int, rows: int, height: int, halo: int, align: int) -> tuple[int, int]:
+    """(rows above, rows below) of band ``rank``'s region: at least ``halo``
+    on each side, cut at the frame's edges, the region's first and last
+    rows on a multiple of ``align`` rows of the frame (or at its edge)."""
+    r0, r1 = rank * rows, rank * rows + rows
+    start = max(0, (r0 - halo) // align * align)
+    end = min(height, -(-(r1 + halo) // align) * align)
+    return r0 - start, end - r1
+
+
+def _with_halo(mesh: DeviceMesh, bands: list[torch.Tensor], halo: int, align: int = 1):
+    """This rank's bands (rows, ...) of some frames, each with the rows of
+    its frame that ``_halo_rows`` gives on each side: (regions, rows above,
+    rows below); the tail's ``exchange`` hook.  One all_gather of
+    fixed-size edge strips, the tensors' channels side by side: every rank
+    sends its first and last k rows, k the widest side of any rank's region
+    (at most its band), n x 2k rows in all (NCCL and gloo alike: gloo has
+    no send/recv on CUDA tensors); a halo wider than a band takes rows from
+    further ranks, whose strips are then their whole bands."""
+    n, rank, rows = mesh.size(), mesh.get_local_rank(), bands[0].shape[0]
+    sides = [_halo_rows(j, rows, n * rows, halo, align) for j in range(n)]
+    k = min(max(max(side) for side in sides), rows)
+    cols = [b.reshape(rows, b.shape[1], -1) for b in bands]
+    strip = torch.cat([torch.cat([c[:k], c[rows - k :]]) for c in cols], dim=-1)
+    top, bottom = sides[rank]
+    parts = _all_gather(mesh, strip, "halo", top + rows + bottom)
+    above, below = [], []
+    for j in range(rank - 1, -1, -1):  # the last rows of the bands above
+        m = min(top - (rank - 1 - j) * rows, rows)
+        if m <= 0:
+            break
+        above.insert(0, parts[j][2 * k - m :])
+    for j in range(rank + 1, n):  # the first rows of the bands below
+        m = min(bottom - (j - rank - 1) * rows, rows)
+        if m <= 0:
+            break
+        below.append(parts[j][:m])
+    regions, c0 = [], 0
+    for band, c in zip(bands, cols):
+        c1 = c0 + c.shape[-1]
+        pieces = [p[..., c0:c1] for p in above] + [c] + [p[..., c0:c1] for p in below]
+        regions.append(torch.cat(pieces).reshape((-1,) + band.shape[1:]))
+        c0 = c1
+    return regions, top, bottom
+
+
+def _warp_band(mesh: DeviceMesh, state: renderer.FrameState) -> torch.Tensor:
+    """This rank's band of ``warp_separable(whole history, whole flow)``;
+    the tail's ``warp`` hook.  The row product reads source rows from
+    anywhere in the frame (a zoom moves rows across bands), so the history
+    and the flow's row profile are gathered; the column profile is any
+    row's, the band's first.  The whole frame is warped and the band kept:
+    the band's slice of the row product alone is a matrix product of another
+    shape, which cuBLAS rounds differently (not bitwise on the card)."""
+    rows = state.prev_image.shape[0]
+    history = gather_rows(mesh, state.prev_image)
+    flow_y = gather_rows(mesh, state.flow[:, 0, 1])
     r0 = mesh.get_local_rank() * rows
-    return image[r0 : r0 + rows]
+    return flow_ops.warp_separable_profiles(history, state.flow[0, :, 0], flow_y)[r0 : r0 + rows]
 
 
-def _postprocess_sharded(mesh, image, blur_map, state, config, scene, max_blur_radius,
-                         denoiser):
-    """The band's image and blur map gathered, the one-device tail on the
-    whole frame, this rank's band of the result; returns (band image, next
-    replicated FrameState)."""
-    image = gather_rows(mesh, image)
-    blur_map = gather_rows(mesh, blur_map)
-    image, next_prev = renderer._postprocess(
-        image, blur_map, state, config, scene, max_blur_radius, denoiser)
-    return _band_of(mesh, image), renderer._next_state(state, next_prev, config)
+def band_hooks(mesh: DeviceMesh) -> dict:
+    """The hooks that run ``renderer._postprocess`` on this rank's band:
+    ``exchange`` (``_with_halo``) and ``warp`` (``_warp_band``)."""
+    return {"exchange": lambda bands, halo, align=1: _with_halo(mesh, bands, halo, align),
+            "warp": lambda state: _warp_band(mesh, state)}
+
+
+def frame_state_sharded(mesh: DeviceMesh, state: renderer.FrameState) -> renderer.FrameState:
+    """This rank's band of a whole frame's FrameState (``init_frame_state``
+    for a first frame, ``load_session``'s on resume): the band's rows of the
+    history and the flow, copied, with the flow still known to be zero where
+    it was.  What ``render_frame_sharded`` takes and returns."""
+    h = state.prev_image.shape[0]
+    rows = _local_rows(mesh, h)
+    r0 = mesh.get_local_rank() * rows
+    zero = None if state.zero_flow is None else state.zero_flow[r0 : r0 + rows].clone()
+    flow = zero if state.flow_is_zero else state.flow[r0 : r0 + rows].clone()
+    return renderer.FrameState(prev_image=state.prev_image[r0 : r0 + rows].clone(), flow=flow,
+                               frame=state.frame, zero_flow=zero)
+
+
+def gather_frame_state(mesh: DeviceMesh, state: renderer.FrameState) -> renderer.FrameState:
+    """The whole frame's FrameState from every rank's band (all_gathers, on
+    every rank): for IO such as ``save_session``, whose file holds the whole
+    frame."""
+    flow = gather_rows(mesh, state.flow)
+    return renderer.FrameState(prev_image=gather_rows(mesh, state.prev_image), flow=flow,
+                               frame=state.frame,
+                               zero_flow=flow if state.flow_is_zero else None)
+
+
+def add_zoom_flow_sharded(mesh: DeviceMesh, flow: torch.Tensor, old_zoom: float,
+                          new_zoom: float) -> torch.Tensor:
+    """``add_zoom_flow`` on this rank's band of the flow: its rows of the
+    whole frame's radial field."""
+    rows = flow.shape[0]
+    return flow_ops.add_zoom_flow(flow, old_zoom, new_zoom, row0=mesh.get_local_rank() * rows,
+                                  height=rows * mesh.size())
+
+
+def _check_band_state(mesh: DeviceMesh, scene: DeviceScene, state: renderer.FrameState):
+    rows = _local_rows(mesh, scene.height)
+    if state.prev_image.shape[:2] != (rows, scene.width):
+        raise ValueError(f"state holds {tuple(state.prev_image.shape[:2])} pixels, not this "
+                         f"rank's band of {rows} x {scene.width}: pass frame_state_sharded's")
 
 
 def render_frame_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
@@ -167,16 +284,20 @@ def render_frame_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
                          max_blur_radius: int | None = None, denoiser=None,
                          cand_tables=None, gather_len: int | None = None):
     """Full multi-device frame: the band's trace, then the denoise + blur
-    tail of ``renderer.render_frame`` on the gathered frame.  ``state`` is
-    the whole frame's FrameState (the same on every rank); returns (this
-    rank's band of the image, the next FrameState, replicated), bitwise the
-    band and state of ``render_frame``.  ``denoiser``: the module with the
-    checkpoint's weights on this rank's device, or None for the analytic
-    pass."""
+    tail of ``renderer.render_frame`` on the band and its halos.  ``state``
+    is this rank's band of the FrameState (``frame_state_sharded``); returns
+    (this rank's band of the image, its band of the next FrameState),
+    bitwise the band's rows of ``render_frame``'s.  ``denoiser``: the module
+    with the checkpoint's weights on this rank's device, or None for the
+    analytic pass.  A resting frame moves only edge strips between ranks; a
+    frame after a camera move also gathers the history for the warp."""
+    _check_band_state(mesh, scene, state)
+    EXCHANGE_LOG.clear()
     image, blur_map = trace_image_sharded(mesh, scene, camera, config, state.frame,
                                           cand_tables, gather_len)
-    return _postprocess_sharded(mesh, image, blur_map, state, config, scene,
-                                max_blur_radius, denoiser)
+    image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
+                                             max_blur_radius, denoiser, **band_hooks(mesh))
+    return image, renderer._next_state(state, next_prev, config)
 
 
 def render_frame_progressive_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
@@ -189,15 +310,17 @@ def render_frame_progressive_sharded(mesh: DeviceMesh, scene: DeviceScene, camer
     the band's fresh sums are added to ``prog``, this rank's band of the
     accumulator (``init_progressive_state(W, H // mesh.size())``), unless
     ``reset``; the accumulated band is normalized and post-processed as in
-    ``render_frame_sharded``.  Returns (band image, next FrameState, next
-    band ProgressiveState)."""
+    ``render_frame_sharded``.  Returns (band image, band's next FrameState,
+    next band ProgressiveState)."""
+    _check_band_state(mesh, scene, state)
+    EXCHANGE_LOG.clear()
     sums = trace_sums_sharded(mesh, scene, camera, config, state.frame, cand_tables, gather_len)
     next_prog = renderer._accumulate(sums, prog, reset)
     image, blur_map = renderer.normalize_sums(
         next_prog.color_sum, next_prog.weight_sum, next_prog.blur_sum, config)
-    image, next_state = _postprocess_sharded(mesh, image, blur_map, state, config, scene,
-                                             max_blur_radius, denoiser)
-    return image, next_state, next_prog
+    image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
+                                             max_blur_radius, denoiser, **band_hooks(mesh))
+    return image, renderer._next_state(state, next_prev, config), next_prog
 
 
 # ---------------------------------------------------------------------------

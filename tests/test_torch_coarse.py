@@ -207,6 +207,33 @@ def test_plain_trace_on_coarse_tables_matches_jax_oracle(traced, name):
     assert_parity((np.asarray(img_j), np.asarray(bm_j)), (img_t.numpy(), bm_t.numpy()))
 
 
+@pytest.mark.parametrize("rpp,rows", [(260, 8), (1000, 4)])
+def test_chunk_lists_where_no_power_of_two_divides_the_wedges(seeded, rpp, rows):
+    """65 wedges (260 rpp) and 250 (1000 rpp) on the seeded scene, two
+    chunks of sub-segments: fine lists do not exist past 64 wedges and no
+    2^k (k >= 1) that divides the count leaves 64 or fewer, so
+    ``table_layout`` takes chunk lists at the fine wedge, shift 0.  The
+    plain trace over those tables equals its full sweep bit for bit on a
+    band of rows.  No JAX comparison: the JAX package asserts at these
+    counts (its coarse tables do not divide the wedges)."""
+    _, dt = seeded
+    cfg = rt.RenderConfig(rays_per_pixel=rpp, use_denoiser=False)
+    n_wedges = tc._grid_geom(dt, cfg, SIZE, SIZE**2)[3]
+    assert n_wedges == rpp // 4 and n_wedges % 2 ** (1 + (rpp == 1000)) != 0
+    assert dt.s_pad // tc.SEG_CHUNK > 1
+    assert tc.table_layout(dt, cfg) == ("chunk", 0)
+    cam = rt.Camera(*CAMERA)
+    n_px = rows * SIZE
+    tabs = tc.build_cand_tables(dt, cam, cfg, 0, n_px)
+    assert tabs.ids is None and tabs.chunk_ids.shape[1] == n_wedges
+    assert tc.table_wedge_shift(tabs, n_wedges) == 0
+    lists = tc.trace_sums_flat(dt, cam, cfg, 3, 0, n_px, tabs)
+    full = tc.trace_sums_flat(dt, cam, cfg, 3, 0, n_px, None)
+    for a, b in zip(lists, full):
+        assert torch.equal(a, b)
+    assert float(lists[1].sum()) > 0.0
+
+
 def test_band_takes_the_full_frames_shift(monkeypatch):
     """With a byte cap between one tile row's fine tables and the frame's,
     the frame coarsens and a band takes its shift, although the band's own

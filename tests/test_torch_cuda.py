@@ -27,6 +27,10 @@ the result, which is rounded again after the bias
 plain route: the network's output is a bf16 residual, so single values move
 by one bf16 step (3.9e-3 below 1, 7.8e-3 from 1 to 2): max 1e-2, mean 1e-4.
 
+Row bands: a band's UNet (the conv kernel) and blur and analytic pass, on
+the band plus its halo rows cut from the whole frame, bitwise equal to the
+whole frame's rows (what parallel/sharded.py relies on).
+
 Training: the batched training forward (cuDNN's bf16 convolution, the
 batched bilateral) against the per-image forward on the plain convolution,
 and one train step against the same step on the CPU (loss 1e-3 relative,
@@ -42,7 +46,9 @@ import torch
 import raytracingdiffusioncurves_torch as rt
 from raytracingdiffusioncurves_torch.models import denoiser as dn
 from raytracingdiffusioncurves_torch.models import renderer
+from raytracingdiffusioncurves_torch.ops import blur as tblur
 from raytracingdiffusioncurves_torch.ops import conv_cuda as cc
+from raytracingdiffusioncurves_torch.ops import denoise as tden
 from raytracingdiffusioncurves_torch.ops import trace_cuda as tc
 from raytracingdiffusioncurves_torch.utils.scenes import (
     _curve_xml,
@@ -649,6 +655,52 @@ def test_denoised_frame_on_the_card(cuda):
         img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
     assert cc.LAUNCHES == 18
     assert img.shape == (size, size, 4) and torch.isfinite(img).all() and st.flow_is_zero
+
+
+def _band_region(t, r0, rows, halo, align=1):
+    """Rows [r0 - halo, r0 + rows + halo) of the whole-frame ``t``, widened
+    to start and end on a multiple of ``align`` rows and cut at the frame's
+    edges: (region, rows above, rows below), as the halo exchange of
+    parallel/sharded.py assembles them from the neighbours."""
+    start = max(0, (r0 - halo) // align * align)
+    end = min(t.shape[0], -(-(r0 + rows + halo) // align) * align)
+    return t[start:end], r0 - start, end - r0 - rows
+
+
+@pytest.mark.parametrize("h,w,n", [(256, 192, 2), (256, 192, 16), (1088, 1920, 4),
+                                   (1080, 1920, 4)],
+                         ids=["two_bands", "bands_narrower_than_the_halo", "denoised_frame",
+                              "bands_off_the_stride_grid"])
+def test_band_tail_equals_the_whole_frames_rows(cuda, h, w, n):
+    """The row-sharded tail on the card, with each band's halo rows cut from
+    the whole frame on one process: the UNet on band + halo, widened to the
+    frame's multiples of 4 rows (the conv kernel, 9 launches per band; bands
+    of 270 rows start off the stride-2 grid), then the blur on band +
+    radius, and the analytic pass on band + 2, each bitwise equal to the
+    whole frame's rows."""
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device=cuda)
+    g = torch.Generator().manual_seed(11)
+    img = torch.cat([torch.rand((h, w, 3), generator=g), torch.ones(h, w, 1)], -1).to(cuda)
+    prev = torch.cat([torch.rand((h, w, 3), generator=g), torch.ones(h, w, 1)], -1).to(cuda)
+    bmap = (2.0 * torch.rand((h, w), generator=g)).to(cuda)
+    radius = tblur.blur_radius(2.0)
+    den = rt.apply_denoiser(net, img, prev, bmap, noise=0.35, frame=1)
+    out = tblur.variable_gaussian_blur(den, bmap, radius)
+    ana = rt.temporal_denoise(img, prev, None, 1, 1.0, flow_is_zero=True)
+    halo, rows = dn.band_halo(net), h // n
+    for r0 in range(0, h, rows):
+        band = slice(r0, r0 + rows)
+        (ri, top, bottom), (rp, _, _), (rb, _, _) = (
+            _band_region(t, r0, rows, halo, dn.BAND_ALIGN) for t in (img, prev, bmap))
+        cc.reset_launch_count()
+        got = rt.apply_denoiser(net, ri, rp, rb, noise=0.35, frame=1, halo=(top, bottom))
+        assert cc.LAUNCHES == 9 and torch.equal(got, den[band]), r0
+        (rd, top, bottom), (rb, _, _) = (_band_region(t, r0, rows, radius) for t in (den, bmap))
+        got = tblur.variable_gaussian_blur(rd, rb, radius, halo=(top, bottom))
+        assert torch.equal(got, out[band]), r0
+        ri, top, bottom = _band_region(img, r0, rows, 2)
+        got = tden.temporal_blend(ri, prev[band], 1, 1.0, halo=(top, bottom))
+        assert torch.equal(got, ana[band]), r0
 
 
 # ---------------------------------------------------------------------------

@@ -208,6 +208,34 @@ def test_unet_runs_nine_convs_without_concat_or_upsample_copies():
     assert calls[8][2] is False
 
 
+@CHECKPOINTS
+def test_receptive_field_from_the_layers(path):
+    """``receptive_field`` works the reach out from the layers: the UNet's
+    output row y reads input rows y - 15 .. y + 18 (two stride-2 levels
+    whose grids start on rows 0 mod 4, two nearest upsamples), the shipped CNN's
+    y - 4 .. y + 4 (four stride-1 layers).  Held against the network: a
+    perturbed input row r changes output rows within r - 18 .. r + 15 only,
+    and over the four phases of the stride-2 grids the changes reach both
+    ends.  ``band_halo``: the wider side plus the bilateral's 2, rounded up
+    to a multiple of 4."""
+    net = rt.net_for_params(rt.load_params(path), device="cpu")
+    up, down = tdn.receptive_field(net)
+    assert (up, down) == ((15, 18) if path == UNET else (4, 4))
+    assert tdn.band_halo(net) == (20 if path == UNET else 8)
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((96, 8, 11), generator=g).to(torch.bfloat16)
+    base = net.residual(x, conv_cuda.conv3x3_plain)
+    reach = []
+    for r in range(40, 44):
+        hit = x.clone()
+        hit[r] += 8.0 * torch.rand((8, 11), generator=g).to(torch.bfloat16)
+        changed = (net.residual(hit, conv_cuda.conv3x3_plain) != base).any(-1).any(-1)
+        rows = torch.nonzero(changed)[:, 0]
+        reach.append((r - int(rows.min()), int(rows.max()) - r))
+    assert all(a <= down and b <= up for a, b in reach), reach
+    assert max(a for a, _ in reach) == down and max(b for _, b in reach) == up, reach
+
+
 def test_noise_level():
     assert rt.models.denoiser.noise_level(16) == dn.noise_level(16) == 0.25
 

@@ -84,3 +84,15 @@ def test_zero_flow_is_identity_bitwise():
     assert torch.equal(tf.warp_by_flow(img, zero), img)
     moved = tf.warp_separable(img, tf.add_translation_flow(zero, 0.5, 0.0))
     assert float((moved - img).abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("row0,rows", [(0, 11), (11, 11), (22, 11), (16, 17)])
+def test_band_zoom_flow_bitwise_vs_jax(row0, rows):
+    """``add_zoom_flow`` on a row band (``row0=``, ``height=``, as the row-
+    sharded FrameState calls it) gives the rows of JAX's whole-frame field,
+    also on a band of an earlier flow."""
+    fj, ft = _flows()
+    band = slice(row0, row0 + rows)
+    want = np.asarray(jf.add_zoom_flow(fj, 0.8, 1.1))[band]
+    got = tf.add_zoom_flow(ft[band], 0.8, 1.1, row0=row0, height=H).numpy()
+    np.testing.assert_array_equal(want, got)

@@ -4,6 +4,7 @@ one imports only torch, numpy and the port (no JAX): the scene XMLs come in
 as arguments, and every comparison with one process or with the JAX package
 stays in the test process."""
 
+import dataclasses
 import os
 import sys
 
@@ -49,9 +50,40 @@ def new_model():
                                   arch="unet", base=8, device="cpu")
 
 
+def band_state(mesh, w=64, h=64):
+    return sharded.frame_state_sharded(mesh, rt.init_frame_state(w, h, device="cpu"))
+
+
+# The chained sequence on the seeded 64^2 scene after its first three frames:
+# (camera, zoom step of the flow or None, denoiser: "unet", "analytic" or
+# "off").  The zoom frames have a non-zero flow (the history is warped); the
+# others rest.
+MOVES = [(rt.Camera(0.9), (1.0, 0.9), "unet"), (rt.Camera(0.9), None, "unet"),
+         (rt.Camera(0.81), (0.9, 0.81), "analytic"), (rt.Camera(0.81), None, "off")]
+
+
+def move_config(kind):
+    return rt.RenderConfig(**FRAME_CFG, **({"use_denoiser": False} if kind == "off" else {}))
+
+
+def moving_frames(mesh, dt, net, st, gather):
+    """MOVES chained from ``st`` (a band state): each frame's gathered image
+    and this rank's exchange log; the final band state's history and flow."""
+    out = []
+    for cam, zoom, kind in MOVES:
+        if zoom is not None:
+            st = dataclasses.replace(st, flow=sharded.add_zoom_flow_sharded(mesh, st.flow, *zoom))
+        img, st = sharded.render_frame_sharded(mesh, dt, cam, st, move_config(kind),
+                                               denoiser=net if kind == "unet" else None)
+        log = list(sharded.EXCHANGE_LOG)
+        out.append((gather(img), log))
+    return out, (st.prev_image.numpy(), st.flow.numpy(), st.frame, st.flow_is_zero)
+
+
 def rank_work(rank, world, xmls):
     """Everything the test module compares, on one rank; host data only.
-    ``xmls``: the scenes by name ("curve" 64^2, "odd" 64 x 63, "dense")."""
+    ``xmls``: the scenes by name ("curve" 64^2, "odd" 64 x 63, "band6" 64 x
+    68: bands of 34 rows, "dense")."""
     mesh = sharded.make_mesh(world, device_type="cpu")
     gather = lambda t: sharded.gather_rows(mesh, t).numpy()  # noqa: E731
     out = {"rank": rank, "size": mesh.size(), "names": mesh.mesh_dim_names,
@@ -69,20 +101,24 @@ def rank_work(rank, world, xmls):
     tabs = sharded.build_cand_tables_sharded(mesh, dt, cam, cfg)
     gl = sharded.seg_max_count_sharded(mesh, dt, tabs)
     out["gather_len"] = gl
-    st = rt.init_frame_state(64, 64, device="cpu")
+    st = band_state(mesh)
     frames = []
     for _ in range(2):
         img, st = sharded.render_frame_sharded(mesh, dt, cam, st, cfg, cand_tables=tabs,
                                                gather_len=gl)
+        out["rest_log"] = list(sharded.EXCHANGE_LOG)
         frames.append(gather(img))
     net = rt.net_for_params(rt.load_params(WEIGHTS), device="cpu")
     img, st = sharded.render_frame_sharded(mesh, dt, rt.Camera(1.1, 2.0, -1.0), st, cfg,
                                            denoiser=net)
     frames.append(gather(img))
     out["frames"], out["prev"], out["frame"] = frames, st.prev_image.numpy(), st.frame
+    out["moves"], out["moved_state"] = moving_frames(mesh, dt, net, st, gather)
+    whole = sharded.gather_frame_state(mesh, st)
+    out["whole_state"] = (whole.prev_image.numpy(), whole.flow.numpy(), whole.flow_is_zero)
 
     pcfg = rt.RenderConfig(**PROG_CFG)
-    st = rt.init_frame_state(64, 64, device="cpu")
+    st = band_state(mesh)
     prog = rt.init_progressive_state(64, 64 // world, device="cpu")
     passes = []
     for reset in (True, False, True, False):
@@ -90,6 +126,11 @@ def rank_work(rank, world, xmls):
                                                                  reset)
         passes.append((gather(img), gather(prog.weight_sum), prog.passes))
     out["progressive"] = passes
+    try:
+        sharded.render_frame_sharded(mesh, dt, cam, rt.init_frame_state(64, 64, device="cpu"),
+                                     cfg)
+    except ValueError as e:
+        out["whole_state_refused"] = str(e)
 
     dense = scene(xmls["dense"])
     dcfg = rt.RenderConfig(**DENSE_CFG)
@@ -111,6 +152,15 @@ def rank_work(rank, world, xmls):
         sharded.trace_image_sharded(mesh, scene(xmls["odd"]), cam, rt.RenderConfig(**TRACE_CFG))
     except ValueError as e:
         out["odd_height"] = str(e)
+    band6 = scene(xmls["band6"])
+    out["band6_trace"] = gather(sharded.trace_image_sharded(mesh, band6, cam,
+                                                            rt.RenderConfig(**TRACE_CFG))[0])
+    st = band_state(mesh, 64, 68)
+    out["band6_frames"] = []
+    for denoiser in (None, None, net):
+        img, st = sharded.render_frame_sharded(mesh, band6, cam, st, cfg, denoiser=denoiser)
+        out["band6_log"] = list(sharded.EXCHANGE_LOG)
+        out["band6_frames"].append(gather(img))
     try:
         sharded.make_mesh(3, device_type="cpu")
     except ValueError as e:
@@ -118,6 +168,32 @@ def rank_work(rank, world, xmls):
     return out
 
 
+def rank_work_wide_halo(rank, world):
+    """Four ranks, bands of 16 rows: the UNet's halo (20 rows) takes rows
+    from two ranks.  The seeded sequence's first frames with the UNet (its
+    frame 0, a resting frame), then MOVES; and two UNet frames of the
+    seeded scene at 64 x 68, bands of 17 rows."""
+    mesh = sharded.make_mesh(world, device_type="cpu")
+    gather = lambda t: sharded.gather_rows(mesh, t).numpy()  # noqa: E731
+    dt = seeded()
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device="cpu")
+    cfg = rt.RenderConfig(**FRAME_CFG)
+    st = band_state(mesh)
+    frames, logs = [], []
+    for _ in range(2):
+        img, st = sharded.render_frame_sharded(mesh, dt, rt.Camera(), st, cfg, denoiser=net)
+        logs.append(list(sharded.EXCHANGE_LOG))
+        frames.append(gather(img))
+    moves, state = moving_frames(mesh, dt, net, st, gather)
+    tall = scene(seeded_scene_xml(0, 64, 68), flatten=16)
+    st = band_state(mesh, 64, 68)
+    tall_frames = []
+    for _ in range(2):
+        img, st = sharded.render_frame_sharded(mesh, tall, rt.Camera(), st, cfg, denoiser=net)
+        tall_log = list(sharded.EXCHANGE_LOG)
+        tall_frames.append(gather(img))
+    return {"frames": frames, "logs": logs, "moves": moves, "moved_state": state,
+            "tall_frames": tall_frames, "tall_log": tall_log}
 
 
 def fail_on_rank_1(rank, world):
