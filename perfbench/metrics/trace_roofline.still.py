@@ -1,0 +1,11 @@
+"""The trace's least time (roofline.frame_counts: operations at the float32
+peak or bytes at the HBM rate) over the trace kernel's device time per still
+frame. Moves frame_ms."""
+
+from perfbench import layers
+
+UNIT = "%"
+
+
+def read(tr):
+    return layers.roofline_share(tr, "still", "trace", lambda: tr.counts()["trace_bound_s"])
