@@ -43,6 +43,7 @@ from torch import nn
 from ..ops import conv_cuda
 from ..ops import denoise as denoise_ops
 from ..utils.devices import resolve_device
+from ..utils.timing import span
 
 BF16 = torch.bfloat16
 
@@ -406,26 +407,29 @@ def _apply_denoiser(model, image, warped_prev, blur_map, mix, noise, frame, conv
     """apply_denoiser with the convolution function named: ``conv3x3`` (the
     dispatch) on every normal call, ``conv3x3_plain`` where a check holds the
     kernel route against the plain one on the same device."""
-    aux = torch.stack([blur_map, torch.full_like(blur_map, float(noise))], dim=-1)
     noisy = image[..., :3]
     prev = warped_prev[..., :3]
-    spatial = denoise_ops.spatial_bilateral(noisy)
-    if frame is not None and frame <= 0:
-        prev = spatial
-    analytic = prev + (spatial - prev) * denoise_ops.TEMPORAL_ALPHA
-    # UNet strides need H, W divisible by 4: reflect-pad, predict, crop.
-    h, w = noisy.shape[:2]
-    ph, pw = (-h) % 4, (-w) % 4
-    args = [noisy, prev, aux, analytic]
-    if (ph or pw) and isinstance(model, UNetDenoiser):
-        args = [_reflect_pad(v, ph, pw) for v in args]
-    top, bottom = halo
-    rows = h - top - bottom
-    pred = model(*[v[None] for v in args], conv=conv)[0, top : top + rows, :w]
-    image = image[top : top + rows]
-    alpha = torch.ones(image.shape[:2] + (1,), dtype=torch.float32, device=image.device)
-    denoised = torch.cat([pred, alpha], dim=-1)
-    return denoised + (image - denoised) * (1.0 - mix)
+    with span("post.bilateral", frame=frame):
+        spatial = denoise_ops.spatial_bilateral(noisy)
+    with span("post.unet", frame=frame):
+        aux = torch.stack([blur_map, torch.full_like(blur_map, float(noise))], dim=-1)
+        if frame is not None and frame <= 0:
+            prev = spatial
+        analytic = prev + (spatial - prev) * denoise_ops.TEMPORAL_ALPHA
+        # UNet strides need H, W divisible by 4: reflect-pad, predict, crop.
+        h, w = noisy.shape[:2]
+        ph, pw = (-h) % 4, (-w) % 4
+        args = [noisy, prev, aux, analytic]
+        if (ph or pw) and isinstance(model, UNetDenoiser):
+            args = [_reflect_pad(v, ph, pw) for v in args]
+        top, bottom = halo
+        rows = h - top - bottom
+        pred = model(*[v[None] for v in args], conv=conv)[0, top : top + rows, :w]
+    with span("post.blend", frame=frame):
+        image = image[top : top + rows]
+        alpha = torch.ones(image.shape[:2] + (1,), dtype=torch.float32, device=image.device)
+        denoised = torch.cat([pred, alpha], dim=-1)
+        return denoised + (image - denoised) * (1.0 - mix)
 
 
 def apply_denoiser(

@@ -82,6 +82,7 @@ import numpy as np
 import torch
 
 from ..scene import device as dev
+from ..utils.timing import span
 
 # Candidate lists pay off only when the full sweep is longer than this.
 CAND_LEN = 32
@@ -176,6 +177,14 @@ def _wedge_dirs(rpp: int, sw: int):
     )
 
 
+def _upload_dirs(wcx: np.ndarray, wcy: np.ndarray, device):
+    """_wedge_dirs' centre vectors as tensors on ``device``: a copy from
+    pageable host memory, which blocks the host until the card has run
+    what was queued before it."""
+    with span("sync.wedge_dirs"):
+        return torch.from_numpy(wcx).to(device), torch.from_numpy(wcy).to(device)
+
+
 def key_slack(consts: torch.Tensor, guard_sin: float) -> torch.Tensor:
     """(S,) float32: how far below its distance bound a segment's ordering
     key can lie for a ray at |sin(theta)| >= guard_sin to its chord (0 for
@@ -203,8 +212,8 @@ def parallel_hazards(consts: torch.Tensor, rpp: int, sw: int, guard_sin: float) 
     reach = math.pi * sw / rpp + math.asin(min(guard_sin, 1.0)) + 1e-4
     if reach >= 0.5 * math.pi:
         return torch.ones((wcx.shape[0], consts.shape[0]), dtype=torch.bool, device=consts.device)
-    wcx = torch.from_numpy(wcx).to(consts.device)[:, None]
-    wcy = torch.from_numpy(wcy).to(consts.device)[:, None]
+    wcx, wcy = _upload_dirs(wcx, wcy, consts.device)
+    wcx, wcy = wcx[:, None], wcy[:, None]
     sin_to_centre = torch.abs(wcx * (ey / chord)[None, :] - wcy * (ex / chord)[None, :])
     return sin_to_centre <= math.sin(reach)
 
@@ -330,8 +339,8 @@ def segment_ids(
 
     wcx, wcy, cos_hw, sin_hw = _wedge_dirs(rpp, sw)
     n_wedges = wcx.shape[0]
-    wcx = torch.from_numpy(wcx).to(device)[:, None, None]  # (W, 1, 1)
-    wcy = torch.from_numpy(wcy).to(device)[:, None, None]
+    wcx, wcy = _upload_dirs(wcx, wcy, device)
+    wcx, wcy = wcx[:, None, None], wcy[:, None, None]  # (W, 1, 1)
     iota = torch.arange(s_pad, dtype=torch.int32, device=device)
     n_list = min(cand_len, s_pad)
     slack = hazard = None
@@ -431,8 +440,8 @@ def chunk_candidates(
     n_tiles = bcx.shape[0]
     wcx, wcy, cos_hw, sin_hw = _wedge_dirs(rpp, sw)
     n_wedges = wcx.shape[0]
-    wcx = torch.from_numpy(wcx).to(device)[:, None, None]
-    wcy = torch.from_numpy(wcy).to(device)[:, None, None]
+    wcx, wcy = _upload_dirs(wcx, wcy, device)
+    wcx, wcy = wcx[:, None, None], wcy[:, None, None]  # (W, 1, 1)
 
     cxs, cys, rs = chunk_bounds[:, 0], chunk_bounds[:, 1], chunk_bounds[:, 2]
     valid = cxs < 1e29  # padding chunks are parked at 1e30

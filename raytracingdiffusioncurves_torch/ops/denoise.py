@@ -20,6 +20,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils.timing import span
 from . import flow as flow_ops
 
 # Temporal accumulation factor: new = lerp(history, current, TEMPORAL_ALPHA)
@@ -110,9 +111,11 @@ def temporal_blend(image: torch.Tensor, warped: torch.Tensor, frame: int, mix: f
     is the band's rows, bitwise those of the whole frame's pass."""
     top, bottom = halo
     rows = image.shape[0] - top - bottom
-    spatial = spatial_bilateral(image)[top : top + rows]
-    image = image[top : top + rows]
-    alpha = TEMPORAL_ALPHA if frame > 0 else 1.0
-    denoised = warped + (spatial - warped) * alpha
-    blend_factor = 1.0 - mix  # 0 => fully denoised (reference default)
-    return denoised + (image - denoised) * blend_factor
+    with span("post.bilateral", frame=frame):
+        spatial = spatial_bilateral(image)[top : top + rows]
+    with span("post.blend", frame=frame):
+        image = image[top : top + rows]
+        alpha = TEMPORAL_ALPHA if frame > 0 else 1.0
+        denoised = warped + (spatial - warped) * alpha
+        blend_factor = 1.0 - mix  # 0 => fully denoised (reference default)
+        return denoised + (image - denoised) * blend_factor

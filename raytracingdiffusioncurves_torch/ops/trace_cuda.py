@@ -27,6 +27,7 @@ import torch
 
 from ..config import Camera, RenderConfig
 from ..scene import device as dev
+from ..utils.timing import span
 from . import candidates as cand_mod
 from . import intersect
 
@@ -388,7 +389,8 @@ def seg_max_count(scene: dev.DeviceScene, cand_tables: CandTables | None) -> int
     to that length."""
     if cand_tables is None or scene.s_pad > LEVEL_SLOTS or cand_tables.dist_ordered:
         return None
-    return int(cand_tables.counts.max())
+    with span("sync.seg_max_count"):
+        return int(cand_tables.counts.max())
 
 
 def narrow_cand_tables(cand_tables: CandTables, gather_len: int) -> CandTables:

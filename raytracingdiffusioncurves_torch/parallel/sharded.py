@@ -61,6 +61,7 @@ from ..models import renderer
 from ..ops import flow as flow_ops
 from ..ops import trace_cuda
 from ..scene.device import DeviceScene
+from ..utils.timing import span
 
 # What this rank's collectives moved since its last frame began (each frame
 # function clears it first), in order: ("halo", bytes received, rows of the
@@ -153,8 +154,9 @@ def trace_image_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
                         config: RenderConfig, frame: int = 0, cand_tables=None,
                         gather_len: int | None = None):
     """Trace this rank's row band: (image (rows, W, 4), blur_map (rows, W))."""
-    sums = trace_sums_sharded(mesh, scene, camera, config, frame, cand_tables, gather_len)
-    return renderer.normalize_sums(*sums, config)
+    with span("trace", frame=frame):
+        sums = trace_sums_sharded(mesh, scene, camera, config, frame, cand_tables, gather_len)
+        return renderer.normalize_sums(*sums, config)
 
 
 def _all_gather(mesh: DeviceMesh, t: torch.Tensor, kind: str, rows: int) -> list[torch.Tensor]:
@@ -235,8 +237,11 @@ def _warp_band(mesh: DeviceMesh, state: renderer.FrameState) -> torch.Tensor:
 def band_hooks(mesh: DeviceMesh) -> dict:
     """The hooks that run ``renderer._postprocess`` on this rank's band:
     ``exchange`` (``_with_halo``) and ``warp`` (``_warp_band``)."""
-    return {"exchange": lambda bands, halo, align=1: _with_halo(mesh, bands, halo, align),
-            "warp": lambda state: _warp_band(mesh, state)}
+    def exchange(bands, halo, align=1):
+        with span("post.exchange"):
+            return _with_halo(mesh, bands, halo, align)
+
+    return {"exchange": exchange, "warp": lambda state: _warp_band(mesh, state)}
 
 
 def frame_state_sharded(mesh: DeviceMesh, state: renderer.FrameState) -> renderer.FrameState:
@@ -293,11 +298,12 @@ def render_frame_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
     frame after a camera move also gathers the history for the warp."""
     _check_band_state(mesh, scene, state)
     EXCHANGE_LOG.clear()
-    image, blur_map = trace_image_sharded(mesh, scene, camera, config, state.frame,
-                                          cand_tables, gather_len)
-    image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
-                                             max_blur_radius, denoiser, **band_hooks(mesh))
-    return image, renderer._next_state(state, next_prev, config)
+    with span("frame", frame=state.frame):
+        image, blur_map = trace_image_sharded(mesh, scene, camera, config, state.frame,
+                                              cand_tables, gather_len)
+        image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
+                                                 max_blur_radius, denoiser, **band_hooks(mesh))
+        return image, renderer._next_state(state, next_prev, config)
 
 
 def render_frame_progressive_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
@@ -314,13 +320,16 @@ def render_frame_progressive_sharded(mesh: DeviceMesh, scene: DeviceScene, camer
     next band ProgressiveState)."""
     _check_band_state(mesh, scene, state)
     EXCHANGE_LOG.clear()
-    sums = trace_sums_sharded(mesh, scene, camera, config, state.frame, cand_tables, gather_len)
-    next_prog = renderer._accumulate(sums, prog, reset)
-    image, blur_map = renderer.normalize_sums(
-        next_prog.color_sum, next_prog.weight_sum, next_prog.blur_sum, config)
-    image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
-                                             max_blur_radius, denoiser, **band_hooks(mesh))
-    return image, renderer._next_state(state, next_prev, config), next_prog
+    with span("frame", frame=state.frame):
+        with span("trace", frame=state.frame):
+            sums = trace_sums_sharded(mesh, scene, camera, config, state.frame, cand_tables,
+                                      gather_len)
+            next_prog = renderer._accumulate(sums, prog, reset)
+            image, blur_map = renderer.normalize_sums(
+                next_prog.color_sum, next_prog.weight_sum, next_prog.blur_sum, config)
+        image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
+                                                 max_blur_radius, denoiser, **band_hooks(mesh))
+        return image, renderer._next_state(state, next_prev, config), next_prog
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..utils.devices import resolve_device
+from ..utils.timing import spanned
 from . import geometry
 from .xml_loader import AttrTable, SceneTables
 
@@ -284,6 +285,7 @@ def _segment_breakpoints(scene: SceneTables, seg: int, k: int) -> np.ndarray:
     return np.array(sorted(ts), dtype=np.float64)
 
 
+@spanned("scene.build_device")
 def build_device_scene(
     scene: SceneTables,
     flatten_subdivisions: int = 16,

@@ -20,6 +20,7 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
+from ..utils.timing import spanned
 from . import geometry
 
 
@@ -143,6 +144,7 @@ def _attr_u(node: ET.Element, use_endcap: bool) -> float:
     return float(node.get("globalID")) / 10.0 + (1.0 if use_endcap else 0.0)
 
 
+@spanned("scene.parse")
 def load_scene(
     path: str,
     diffusion_curve_save: bool = True,
@@ -181,6 +183,7 @@ def load_scene(
     )
 
 
+@spanned("scene.parse")
 def load_scene_from_string(text: str, **kwargs) -> SceneTables:
     return build_scene(ET.fromstring(text), **kwargs)
 

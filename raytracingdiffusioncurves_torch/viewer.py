@@ -38,6 +38,7 @@ from .ops import flow as flow_ops
 from .ops import trace_cuda
 from .scene.device import DeviceScene
 from .utils.image import save_image
+from .utils.timing import span
 
 ZOOM_STEP = 1.5  # glfw_events.cpp:39
 # The world grid's margins: built for zooms up to one zoom-out step past
@@ -100,24 +101,26 @@ class InteractiveSession:
     def scroll(self, yoffset: float) -> None:
         """Zoom: zoom_factor *= 1.5^-yoffset, with the radial flow update for
         the temporal denoiser (scroll_callback, glfw_events.cpp:105-112)."""
-        old = self.camera.zoom_factor
-        new = old * ZOOM_STEP ** (-yoffset)
-        flow = flow_ops.add_zoom_flow(self.state.flow, old, new)
-        self.state = dataclasses.replace(self.state, flow=flow)
-        self.camera = Camera(new, self.camera.offset_x, self.camera.offset_y)
-        self._moved = True
+        with span("session.event.scroll", frame=self.state.frame):
+            old = self.camera.zoom_factor
+            new = old * ZOOM_STEP ** (-yoffset)
+            flow = flow_ops.add_zoom_flow(self.state.flow, old, new)
+            self.state = dataclasses.replace(self.state, flow=flow)
+            self.camera = Camera(new, self.camera.offset_x, self.camera.offset_y)
+            self._moved = True
 
     def drag(self, dx_pixels: float, dy_pixels: float) -> None:
         """Pan by a mouse delta in pixels: offset -= delta * zoom
         (mouse_cursor_callback, glfw_events.cpp:122-123) plus the translation
         flow the reference intended (:128)."""
-        z = self.camera.zoom_factor
-        self.camera = Camera(
-            z, self.camera.offset_x - dx_pixels * z, self.camera.offset_y - dy_pixels * z
-        )
-        flow = flow_ops.add_translation_flow(self.state.flow, -dx_pixels, -dy_pixels)
-        self.state = dataclasses.replace(self.state, flow=flow)
-        self._moved = True
+        with span("session.event.drag", frame=self.state.frame):
+            z = self.camera.zoom_factor
+            self.camera = Camera(
+                z, self.camera.offset_x - dx_pixels * z, self.camera.offset_y - dy_pixels * z
+            )
+            flow = flow_ops.add_translation_flow(self.state.flow, -dx_pixels, -dy_pixels)
+            self.state = dataclasses.replace(self.state, flow=flow)
+            self._moved = True
 
     def grid_serves(self) -> bool:
         """Whether the session's grid serves the current camera: it covers
@@ -140,9 +143,10 @@ class InteractiveSession:
         hx = GRID_VIEWPORTS * 0.5 * self.scene.width * z
         hy = GRID_VIEWPORTS * 0.5 * self.scene.height * z
         self.grid = None  # free the old grid's tables before the new build
-        self.grid = trace_cuda.build_cand_grid(
-            self.scene, self.config, cx - hx, cy - hy, cx + hx, cy + hy, zoom_max=z
-        )
+        with span("session.grid_build", frame=self.state.frame):
+            self.grid = trace_cuda.build_cand_grid(
+                self.scene, self.config, cx - hx, cy - hy, cx + hx, cy + hy, zoom_max=z
+            )
         self.grid_builds += 1
         return self.grid
 
@@ -150,27 +154,32 @@ class InteractiveSession:
         """(tables, gather_len) for this frame's camera: selected from the
         world grid on a moving frame, the camera's own (built once) on a
         resting one.  (None, None) for scenes that take the full sweep."""
-        if self.camera == self._cand_camera:
-            if self._cand_tables is None:
-                self._cand_tables = trace_cuda.build_cand_tables(
-                    self.scene, self.camera, self.config
+        f = self.state.frame
+        with span("session.accel", frame=f):
+            if self.camera == self._cand_camera:
+                if self._cand_tables is None:
+                    with span("session.own_tables", frame=f):
+                        self._cand_tables = trace_cuda.build_cand_tables(
+                            self.scene, self.camera, self.config
+                        )
+                        self._gather_len = trace_cuda.seg_max_count(
+                            self.scene, self._cand_tables)
+                        if self._gather_len is not None:
+                            self._cand_tables = trace_cuda.narrow_cand_tables(
+                                self._cand_tables, self._gather_len
+                            )
+                return self._cand_tables, self._gather_len
+            # the camera changed this frame
+            self._cand_camera = self.camera
+            self._cand_tables = self._gather_len = None
+            grid = self.world_grid()
+            if grid is None:
+                return None, None
+            with span("session.grid_gather", frame=f):
+                return (
+                    trace_cuda.grid_tables(grid, self.scene, self.camera, self.config),
+                    grid.gather_len,
                 )
-                self._gather_len = trace_cuda.seg_max_count(self.scene, self._cand_tables)
-                if self._gather_len is not None:
-                    self._cand_tables = trace_cuda.narrow_cand_tables(
-                        self._cand_tables, self._gather_len
-                    )
-            return self._cand_tables, self._gather_len
-        # the camera changed this frame
-        self._cand_camera = self.camera
-        self._cand_tables = self._gather_len = None
-        grid = self.world_grid()
-        if grid is None:
-            return None, None
-        return (
-            trace_cuda.grid_tables(grid, self.scene, self.camera, self.config),
-            grid.gather_len,
-        )
 
     def render(self, block: bool = True) -> torch.Tensor:
         """Render one frame; returns the (H, W, 4) image on the scene's
@@ -179,19 +188,22 @@ class InteractiveSession:
         without waiting for the card: frame_times then record the enqueue,
         and a display loop gets its synchronization from its readback."""
         t0 = time.perf_counter()
-        cand_tables, gather_len = self.accel_tables()
-        kw = dict(denoiser=self.denoiser, cand_tables=cand_tables, gather_len=gather_len)
-        if self.progressive:
-            image, self.state, self.prog = renderer.render_frame_progressive(
-                self.scene, self.camera, self.state, self.prog, self.config, self._moved, **kw
-            )
-        else:
-            image, self.state = renderer.render_frame(
-                self.scene, self.camera, self.state, self.config, **kw
-            )
-        self._moved = False
-        if block and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("session.render", frame=self.state.frame):
+            cand_tables, gather_len = self.accel_tables()
+            kw = dict(denoiser=self.denoiser, cand_tables=cand_tables, gather_len=gather_len)
+            if self.progressive:
+                image, self.state, self.prog = renderer.render_frame_progressive(
+                    self.scene, self.camera, self.state, self.prog, self.config, self._moved,
+                    **kw
+                )
+            else:
+                image, self.state = renderer.render_frame(
+                    self.scene, self.camera, self.state, self.config, **kw
+                )
+            self._moved = False
+            if block and self.device.type == "cuda":
+                with span("sync.render_block"):
+                    torch.cuda.synchronize(self.device)
         self.frame_times.append(time.perf_counter() - t0)
         self.last_image = image
         return image
