@@ -757,7 +757,10 @@ def denoise_phases(smi):
     trace_ms, _ = cuda_ms(lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, tables, gl), 5)
     zoomed = rt.add_zoom_flow(state.flow, 1.0, 0.9)
     warp_ms, _ = cuda_ms(lambda: flow.warp_separable(state.prev_image, zoomed), 3)
-    bil_ms, spatial = cuda_ms(lambda: denoise.spatial_bilateral(raw[..., :3]), 3)
+    bil_ms, spatial = cuda_ms(lambda: denoise.spatial_bilateral(raw[..., :3]), 20)
+    bil_plain_ms, spatial_plain = cuda_ms(lambda: denoise.spatial_bilateral_plain(raw[..., :3]), 3)
+    require(torch.equal(spatial, spatial_plain),
+            "bilateral kernel vs plain version: not bitwise equal")
     prev = state.prev_image[..., :3]
     analytic_img = prev + (spatial - prev) * denoise.TEMPORAL_ALPHA
     aux = torch.stack([bmap, torch.full_like(bmap, noise)], dim=-1)
@@ -768,7 +771,8 @@ def denoise_phases(smi):
     tden_ms, _ = cuda_ms(lambda: denoise.temporal_denoise(raw, state.prev_image, state.flow,
                                                           state.frame, 1.0, True), 3)
     phase("denoise_breakdown", trace_ms=f"{trace_ms:.3f}", warp_ms=f"{warp_ms:.3f}",
-          bilateral_ms=f"{bil_ms:.3f}", unet_ms=f"{unet_ms:.3f}",
+          bilateral_ms=f"{bil_ms:.3f}", bilateral_plain_ms=f"{bil_plain_ms:.3f}",
+          unet_ms=f"{unet_ms:.3f}",
           convs_ms=f"{sum(r['ms'] for r in rows):.3f}", apply_denoiser_ms=f"{whole_ms:.3f}",
           temporal_denoise_ms=f"{tden_ms:.3f}", blur_ms=f"{blur_ms:.3f}", blur_radius=radius,
           **{f"{r['name']}_ms": f"{r['ms']:.3f}" for r in rows})

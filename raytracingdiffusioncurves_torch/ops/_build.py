@@ -11,10 +11,10 @@ compiler's output.
 Flags: ``sm_90a`` (Hopper) and no fast math for every source; IEEE division
 and square root are nvcc's defaults; ``-Xptxas -v`` writes each kernel's
 registers, shared memory and spills to the build log.  Each source adds its
-own flags (``SOURCE_FLAGS``): the trace kernel builds with ``--fmad=false``
-so that every multiply and add rounds on its own, as in its plain PyTorch
-version; the convolution's products are exact in float32 and summed by the
-tensor cores, so it needs no flag of its own.
+own flags (``SOURCE_FLAGS``): the trace and bilateral kernels build with
+``--fmad=false`` so that every multiply and add rounds on its own, as in
+their plain PyTorch versions; the convolution's products are exact in
+float32 and summed by the tensor cores, so it needs no flag of its own.
 
 This module is imported only by code that launches a kernel: the CPU tests
 never need nvcc.
@@ -41,10 +41,12 @@ COMMON_FLAGS = [
 SOURCE_FLAGS = {
     "trace": ["--fmad=false"],
     "conv3x3": [],
+    "bilateral": ["--fmad=false"],
 }
 
 # ctypes signatures of each library's C entry points.
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     "trace": {
         "rtdc_trace_sums": (
@@ -77,6 +79,17 @@ SIGNATURES = {
             _I,
         ),
         "rtdc_conv3x3_info": ([_I, _P], _I),  # instantiation, int[8] out
+        "rtdc_error_string": ([_I], ctypes.c_char_p),
+    },
+    "bilateral": {
+        "rtdc_bilateral5x5": (
+            [_P, _P,  # image, out
+             _I, _I, _I, _I,  # n, h, w, c
+             _L, _L, _L, _L,  # the image's strides (elements): batch, row, pixel, channel
+             _I, _P, _F, _I,  # float4 staging, 25 spatial constants (host), inv_sc, bf16
+             _P],  # stream
+            _I,
+        ),
         "rtdc_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -10,7 +10,10 @@ denoised output, 1 = passthrough).  Two components, as in the JAX package:
 * **spatial**: a 5x5 joint-bilateral filter on the current frame, weighted by its own colours.
 
 The output feeds both the displayed image and the next frame's prev_image
-(:1216-1231).  Plain PyTorch: the JAX package runs this outside Pallas too.
+(:1216-1231).  Plain PyTorch, but for the spatial pass on the card: one
+launch of the hand-written kernel ``csrc/bilateral.cu``
+(``ops/bilateral_cuda.py``), bitwise equal to the plain version kept here.
+The JAX package runs this stage outside Pallas.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.timing import span
+from . import bilateral_cuda
 from . import flow as flow_ops
 
 # Temporal accumulation factor: new = lerp(history, current, TEMPORAL_ALPHA)
@@ -37,10 +41,38 @@ def _bf16_scalar(v: float) -> float:
     return float(torch.tensor(v, dtype=torch.bfloat16))
 
 
+@functools.lru_cache(maxsize=None)
+def _weight_constants(bf16_weights: bool) -> tuple[tuple[float, ...], float]:
+    """Each tap's spatial term, dy-major, and the colour scale, as the weight
+    chain uses them: bf16 values (as Python floats) in the bf16 branch."""
+    r = BILATERAL_RADIUS
+    inv_ss = 1.0 / (2.0 * _BILATERAL_SIGMA_SPACE**2)
+    inv_sc = 1.0 / (2.0 * _BILATERAL_SIGMA_COLOR**2)
+    spatial = tuple(-(dx * dx + dy * dy) * inv_ss
+                    for dy in range(-r, r + 1) for dx in range(-r, r + 1))
+    if bf16_weights:
+        return tuple(_bf16_scalar(v) for v in spatial), _bf16_scalar(inv_sc)
+    return spatial, inv_sc
+
+
 def spatial_bilateral(image: torch.Tensor, bf16_weights: bool = True) -> torch.Tensor:
     """5x5 joint bilateral filter weighted by the image's own colours, all
     channels, of an (..., H, W, C) image: leading axes are a batch (the JAX
-    package maps the single-image filter over them with ``jax.vmap``).
+    package maps the single-image filter over them with ``jax.vmap``).  A
+    CUDA tensor takes one launch of the kernel (``bilateral_cuda``), bitwise
+    equal to ``spatial_bilateral_plain``; a CPU tensor takes the plain
+    version."""
+    device = image.device
+    if device.type == "cuda":
+        spatial, inv_sc = _weight_constants(bf16_weights)
+        return bilateral_cuda.bilateral5x5(image, spatial, inv_sc, bf16_weights)
+    if device.type != "cpu":
+        raise RuntimeError(f"no bilateral path for device {device}")
+    return spatial_bilateral_plain(image, bf16_weights)
+
+
+def spatial_bilateral_plain(image: torch.Tensor, bf16_weights: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of ``spatial_bilateral``, on any device.
 
     ``bf16_weights`` (the JAX package's default, ``BILATERAL_BF16``): only
     the WEIGHT chain (colour differences, squared distance, exp) runs in
@@ -49,8 +81,7 @@ def spatial_bilateral(image: torch.Tensor, bf16_weights: bool = True) -> torch.T
     identical (quantized) weight and accum / wsum is exact.  False runs the
     whole filter in float32."""
     r = BILATERAL_RADIUS
-    inv_ss = 1.0 / (2.0 * _BILATERAL_SIGMA_SPACE**2)
-    inv_sc = 1.0 / (2.0 * _BILATERAL_SIGMA_COLOR**2)
+    spatial, inv_sc = _weight_constants(bf16_weights)
     h, w, c = image.shape[-3:]
     # edge padding of the two image axes, over the batch as one (N, C, H, W)
     flat = image.reshape(-1, h, w, c).permute(0, 3, 1, 2)
@@ -61,21 +92,19 @@ def spatial_bilateral(image: torch.Tensor, bf16_weights: bool = True) -> torch.T
     if bf16_weights:
         centre = image[..., :3].to(torch.bfloat16)
         padded_g = padded[..., :3].to(torch.bfloat16)
-        inv_sc_b = _bf16_scalar(inv_sc)
     for dy in range(-r, r + 1):
         for dx in range(-r, r + 1):
+            s = spatial[(dy + r) * (2 * r + 1) + dx + r]
             nb = padded[..., dy + r : dy + r + h, dx + r : dx + r + w, :]
             if bf16_weights:
                 nbg = padded_g[..., dy + r : dy + r + h, dx + r : dx + r + w, :]
                 diff = nbg - centre
                 dist2 = torch.sum(diff * diff, dim=-1)
-                wgt = torch.exp(
-                    _bf16_scalar(-(dx * dx + dy * dy) * inv_ss) - dist2 * inv_sc_b
-                ).to(image.dtype)
+                wgt = torch.exp(s - dist2 * inv_sc).to(image.dtype)
             else:
                 diff = nb[..., :3] - image[..., :3]
                 dist2 = torch.sum(diff * diff, dim=-1)
-                wgt = torch.exp(-(dx * dx + dy * dy) * inv_ss - dist2 * inv_sc)
+                wgt = torch.exp(s - dist2 * inv_sc)
             accum = accum + nb * wgt[..., None]
             wsum = wsum + wgt
     return accum / wsum[..., None]

@@ -31,6 +31,12 @@ Row bands: a band's UNet (the conv kernel) and blur and analytic pass, on
 the band plus its halo rows cut from the whole frame, bitwise equal to the
 whole frame's rows (what parallel/sharded.py relies on).
 
+Bilateral filter: the kernel (csrc/bilateral.cu) bitwise equal to
+spatial_bilateral_plain on the same card, in both weight branches, on a
+rendered 1080p frame read through its [..., :3] view, random images, the
+training batch and frames of 1 to 4 rows or columns; one launch a
+denoised frame.
+
 Training: the batched training forward (cuDNN's bf16 convolution, the
 batched bilateral) against the per-image forward on the plain convolution,
 and one train step against the same step on the CPU (loss 1e-3 relative,
@@ -46,6 +52,7 @@ import torch
 import raytracingdiffusioncurves_torch as rt
 from raytracingdiffusioncurves_torch.models import denoiser as dn
 from raytracingdiffusioncurves_torch.models import renderer
+from raytracingdiffusioncurves_torch.ops import bilateral_cuda as bc
 from raytracingdiffusioncurves_torch.ops import blur as tblur
 from raytracingdiffusioncurves_torch.ops import conv_cuda as cc
 from raytracingdiffusioncurves_torch.ops import denoise as tden
@@ -655,6 +662,101 @@ def test_denoised_frame_on_the_card(cuda):
         img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
     assert cc.LAUNCHES == 18
     assert img.shape == (size, size, 4) and torch.isfinite(img).all() and st.flow_is_zero
+
+
+# ---------------------------------------------------------------------------
+# the bilateral kernel
+# ---------------------------------------------------------------------------
+
+
+def _assert_bilateral_bitwise(img, bf16_weights=True):
+    """One launch of the kernel, bitwise the plain version on the same card."""
+    bc.reset_launch_count()
+    got = tden.spatial_bilateral(img, bf16_weights)
+    assert bc.LAUNCHES == 1
+    want = tden.spatial_bilateral_plain(img, bf16_weights)
+    torch.cuda.synchronize()
+    assert got.shape == img.shape and got.is_contiguous()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def _bilateral_image(shape, seed, device):
+    """Smooth fields, noise of several scales, flat patches (equal weights)
+    and values quantized to 1/64 (ties in the bf16 chain)."""
+    g = torch.Generator().manual_seed(seed)
+    img = 0.5 + 0.1 * torch.randn(shape, generator=g)
+    img = img * torch.exp(2.0 * torch.randn(shape[:-1] + (1,), generator=g))
+    flat = torch.rand(shape[:-1] + (1,), generator=g) < 0.2
+    img = torch.where(flat, torch.full_like(img, 0.75), img)
+    quant = torch.rand(shape[:-1] + (1,), generator=g) < 0.3
+    img = torch.where(quant, torch.round(img * 64.0) / 64.0, img)
+    return img.to(device)
+
+
+@pytest.mark.parametrize("bf16_weights", [True, False], ids=["bf16", "float32"])
+def test_bilateral_kernel_on_a_rendered_frame(cuda, bf16_weights):
+    """The arch1080_8rpp_unet frame (the seeded arch class at 1920x1080, 8
+    rays per pixel), read through the main path's [..., :3] view of the
+    (H, W, 4) image."""
+    w, h = 1920, 1080
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, w, h)), device=cuda)
+    raw, _ = rt.trace_image(dt, rt.Camera(), rt.RenderConfig(rays_per_pixel=8), 0)
+    assert raw.shape == (h, w, 4)
+    _assert_bilateral_bitwise(raw[..., :3], bf16_weights)
+
+
+@pytest.mark.parametrize("bf16_weights", [True, False], ids=["bf16", "float32"])
+@pytest.mark.parametrize("kind", ["c3", "c4", "view_of_c4", "transposed", "c8"])
+def test_bilateral_kernel_on_random_images(cuda, kind, bf16_weights):
+    h, w = 70, 101  # ragged against the kernel's 16 x 32 tiles
+    if kind == "c3":
+        img = _bilateral_image((h, w, 3), 1, cuda)
+    elif kind == "c4":
+        img = _bilateral_image((h, w, 4), 2, cuda)
+    elif kind == "view_of_c4":
+        img = _bilateral_image((h, w, 4), 3, cuda)[..., :3]
+    elif kind == "transposed":
+        img = _bilateral_image((w, h, 3), 4, cuda).transpose(0, 1)
+    else:
+        img = _bilateral_image((h, w, 8), 5, cuda)
+    _assert_bilateral_bitwise(img, bf16_weights)
+
+
+@pytest.mark.parametrize("bf16_weights", [True, False], ids=["bf16", "float32"])
+def test_bilateral_kernel_on_the_training_batch(cuda, bf16_weights):
+    """32 crops of 64 x 64, the training path's batch (leading axis)."""
+    _assert_bilateral_bitwise(_bilateral_image((32, 64, 64, 3), 6, cuda), bf16_weights)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 9), (2, 40), (3, 3), (4, 70), (37, 1), (50, 2),
+                                 (9, 4)])
+def test_bilateral_kernel_on_thin_frames(cuda, h, w):
+    """Frames of 1 to 4 rows or columns: the replicate padding covers the
+    whole window."""
+    _assert_bilateral_bitwise(_bilateral_image((h, w, 3), h * 100 + w, cuda))
+    _assert_bilateral_bitwise(_bilateral_image((h, w, 4), h * 100 + w, cuda)[..., :3], False)
+
+
+def test_bilateral_kernel_keeps_constants_exact(cuda):
+    img = torch.full((33, 45, 4), 0.8, device=cuda)
+    assert torch.equal(tden.spatial_bilateral(img), img)
+    assert torch.equal(tden.spatial_bilateral(img[..., :3]), img[..., :3])
+
+
+@pytest.mark.parametrize("learned", [True, False], ids=["unet", "analytic"])
+def test_one_bilateral_launch_a_denoised_frame(cuda, learned):
+    size = 64
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, size, size)),
+                               device=cuda)
+    cfg = rt.RenderConfig(rays_per_pixel=8, rays_per_block=2048)
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device=cuda) if learned else None
+    st = rt.init_frame_state(size, size, device=cuda)
+    img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
+    bc.reset_launch_count()
+    img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
+    assert bc.LAUNCHES == 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(img).all()
 
 
 def _band_region(t, r0, rows, halo, align=1):
