@@ -10,7 +10,7 @@ the measured window, checks a sample of the window's frames against the
 plain reference (``reference/``), and, in a traced run, hands the profiler's
 events to every per-layer reader in ``metrics/``.
 
-Two loops, one per traffic kind:
+Two loops are built in, one per traffic kind:
 
 * ``still``: ``render_frame`` on hoisted tables, chained as a
   double-buffered viewer chains them: the host waits on frame i-1's
@@ -18,6 +18,10 @@ Two loops, one per traffic kind:
 * ``session``: an ``InteractiveSession`` closed loop, one user: each frame
   applies its scripted event, enqueues the session's render, and waits for
   the card.
+
+Any other kind is a file, ``loops/<kind>.py``, whose ``run`` takes the
+place of ``run`` here (``load_loop``); a loop that spans several cards
+spawns one rank per card through ``run_ranks``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import dataclasses
 import importlib.util
 import json
 import math
+import os
 import pathlib
 import random
 import subprocess
@@ -71,6 +76,16 @@ def load_cell(name: str, root: pathlib.Path = BENCH) -> Cell:
     wl = read_json(root, "workloads", name)
     return Cell(name, wl, read_json(root, "configs", wl["config"]),
                 read_json(root, "traffic", wl["traffic"]), root)
+
+
+def process_age() -> float:
+    """Seconds since this process started (Linux; 0 where unknown)."""
+    try:
+        start_ticks = int(pathlib.Path("/proc/self/stat").read_text().rsplit(")", 1)[1].split()[19])
+        uptime = float(pathlib.Path("/proc/uptime").read_text().split()[0])
+        return max(0.0, uptime - start_ticks / os.sysconf("SC_CLK_TCK"))
+    except (OSError, ValueError, IndexError):
+        return 0.0
 
 
 def forbidden_modules() -> list[str]:
@@ -433,6 +448,54 @@ class SessionLoop:
 LOOPS = {"still": StillLoop, "session": SessionLoop}
 
 
+def load_loop(kind: str, root: pathlib.Path = BENCH):
+    """The loop of traffic ``kind``: a built-in class of ``LOOPS``, or else
+    the module ``root``/loops/<kind>.py, which defines ``run`` with
+    ``run``'s arguments."""
+    if kind in LOOPS:
+        return LOOPS[kind]
+    path = root / "loops" / f"{kind}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no loop for traffic kind {kind!r} ({path})")
+    return load_file(path)
+
+
+def load_file(path) -> object:
+    """The module of the Python file ``path``, loaded under a name of its
+    own (the benchmark's readers and loops are files, not a package)."""
+    path = pathlib.Path(path)
+    name = f"perfbench_{path.parent.name}_{path.stem.replace('.', '_')}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rank_entry(rank: int, world_size: int, loop_path: str, job: dict):
+    """A spawned rank of ``run_ranks``: the loop file's ``rank_main``."""
+    return load_file(loop_path).rank_main(rank, world_size, job)
+
+
+def run_ranks(loop_path, world_size: int, job: dict, dev_name: str, timeout: float) -> list:
+    """``rank_main(rank, world_size, job)`` of the loop file ``loop_path``
+    in ``world_size`` spawned ranks of one process group, through the
+    program's ``parallel.sharded.spawn_ranks``, as its CLI's ``--devices``
+    spawns them: NCCL with one card per rank, gloo on the CPU (and where
+    ranks would share a card).  ``job["dev"]`` tells each rank its device:
+    ``cpu``, or ``cuda`` (rank i on card i modulo the cards).  Returns the
+    ranks' values; raises when a rank fails or ``timeout`` seconds pass
+    (every rank has ended then)."""
+    import torch
+
+    from raytracingdiffusioncurves_torch.parallel import sharded
+
+    backend = "gloo"
+    if dev_name != "cpu" and torch.cuda.device_count() >= world_size:
+        backend = "nccl"
+    return sharded.spawn_ranks(rank_entry, world_size, (str(loop_path), dict(job, dev=dev_name)),
+                               backend=backend, timeout=timeout)
+
+
 # ---------------------------------------------------------------------------
 # the comparison
 # ---------------------------------------------------------------------------
@@ -511,6 +574,9 @@ class Trace:
     xml: str
     dev: object
     _counts: dict | None = None
+    # A cell across cards: every rank's traced window (``RankTrace``), the
+    # fields above being the slowest rank's; None on one card.
+    ranks: list | None = None
 
     @property
     def kind(self) -> str:
@@ -529,6 +595,26 @@ class Trace:
             self._counts = roofline.frame_counts(self.cell.config, self.xml, self.settings,
                                                  self.cell.traffic["camera"], self.dev)
         return self._counts
+
+
+@dataclasses.dataclass
+class RankTrace:
+    """One rank's traced window: its device operations and harness spans
+    (as ``Trace`` holds them), its band of rows, and what its collectives
+    moved in its last frame (the program's ``sharded.EXCHANGE_LOG``)."""
+
+    rank: int
+    frames: int
+    window_s: float
+    device_ops: list
+    spans: list
+    row0: int
+    rows: int
+    exchange: list
+
+    @property
+    def busy_s(self) -> float:
+        return union_ns([(s, s + d) for _, s, d in self.device_ops]) * 1e-9
 
 
 def union_ns(intervals) -> int:
@@ -608,11 +694,7 @@ def load_readers(root: pathlib.Path = BENCH) -> dict:
     for path in sorted((root / "metrics").glob("*.py")):
         if path.name.startswith("_"):
             continue
-        spec = importlib.util.spec_from_file_location(
-            "perfbench_metric_" + path.stem.replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        readers[path.stem] = mod
+        readers[path.stem] = load_file(path)
     return readers
 
 
@@ -638,6 +720,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, dev_name: str = "cud
     program's place in the comparison (never in a benchmark run)."""
     if t_start is None:
         t_start = time.perf_counter()
+    if cell.kind not in LOOPS:
+        return load_loop(cell.kind, cell.root).run(cell, seed, seconds, trace, dev_name,
+                                                   t_start, mode)
     import torch
 
     import raytracingdiffusioncurves_torch as rt

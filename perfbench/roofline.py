@@ -17,6 +17,9 @@ B/s of HBM.  A share against them is stated with the card's power limit.
   bf16 weights and bias, the bf16 output, each once) at the HBM rate;
   summed over the nine layers.
 * Post-processing: the least bytes of its passes at the HBM rate.
+* A band of rows (``band_counts``, a cell across cards): the trace of its
+  rows alone, every sub-segment's record read once and the band's pixel
+  sums written once.
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ PIXEL_SUM_BYTES = 5 * 4
 # 6 and image 16 in; next state 16 out) 50; the blur (state 16 and blur map
 # 4 in; display 16 out) 36.
 POST_BYTES_PER_PIXEL = 40 + 24 + 74 + 50 + 36
+# The same with the denoiser off: normalize 40 and the blur 36.
+PLAIN_POST_BYTES_PER_PIXEL = 40 + 36
 
 
 def unet_layers(height: int, width: int, base: int = 24, cin: int = 11):
@@ -120,13 +125,17 @@ def crossings(scene, origins, dirs, t_hit):
     return hit.sum(dim=1)
 
 
-def trace_ops(scene, camera, cfg, dev, pairs_per_chunk: int = 1 << 26) -> tuple[float, int]:
-    """(operations of the whole frame, rays counted) from every
-    ROW_STRIDE-th row, scaled to every row."""
+def trace_ops(scene, camera, cfg, dev, pairs_per_chunk: int = 1 << 26, row0: int = 0,
+              n_rows: int | None = None) -> tuple[float, int]:
+    """(operations of rows [row0, row0 + n_rows), rays counted) from every
+    ROW_STRIDE-th of those rows, scaled to every row; by default the whole
+    frame."""
     from perfbench.reference import intersect
 
     w, h, rpp = scene.width, scene.height, cfg.rays_per_pixel
-    rows = list(range(ROW_STRIDE // 2, h, ROW_STRIDE))
+    n_rows = h - row0 if n_rows is None else n_rows
+    # a band under ROW_STRIDE // 2 rows: its middle row
+    rows = list(range(row0 + ROW_STRIDE // 2, row0 + n_rows, ROW_STRIDE)) or [row0 + n_rows // 2]
     px = torch.tensor([r * w + x for r in rows for x in range(w)], device=dev)
     n_px = px.numel()
     chunk = max(1, pairs_per_chunk // (scene.s_pad * rpp))
@@ -139,7 +148,7 @@ def trace_ops(scene, camera, cfg, dev, pairs_per_chunk: int = 1 << 26) -> tuple[
         n_cross = crossings(scene, origins, dirs, torch.where(hit, t, math.inf))
         ops += float(RAYGEN_FLOP * pix.numel() + SHADE_FLOP * int(hit.sum())
                      + PAIR_FLOP * int(n_cross.sum()))
-    return ops * (h / len(rows)), n_px * rpp
+    return ops * (n_rows / len(rows)), n_px * rpp
 
 
 def frame_counts(config: dict, xml: str, settings: dict, camera: dict, dev) -> dict:
@@ -161,3 +170,23 @@ def frame_counts(config: dict, xml: str, settings: dict, camera: dict, dev) -> d
     return {"trace_flop": ops, "trace_bytes": trace_bytes, "trace_bound_s": trace_s,
             "conv_bound_s": conv_s, "post_bound_s": post_s,
             "frame_bound_s": trace_s + conv_s + post_s}
+
+
+def band_counts(config: dict, xml: str, settings: dict, camera: dict, dev, row0: int,
+                n_rows: int) -> dict:
+    """Operations, bytes and least seconds of the trace of rows [row0, row0 +
+    n_rows) of one frame at ``camera``: a band's share of the frame's trace
+    (every sub-segment's record read once by the band, its pixels' sums
+    written once)."""
+    from perfbench.reference import frame as ref
+    from perfbench.reference.config import Camera, RenderConfig
+
+    cfg = RenderConfig(**settings)
+    cam = Camera(float(camera["zoom"]), float(camera["offset_x"]), float(camera["offset_y"]))
+    with torch.no_grad():
+        scene = ref.load_scene(xml, cfg, dev)
+        ops, _ = trace_ops(scene, cam, cfg, dev, row0=row0, n_rows=n_rows)
+    segment_bytes = SEGMENT_BYTES * scene.n_sub
+    trace_bytes = segment_bytes + PIXEL_SUM_BYTES * n_rows * scene.width
+    return {"trace_flop": ops, "trace_bytes": trace_bytes, "segment_bytes": segment_bytes,
+            "trace_bound_s": max(ops / FP32_FLOPS, trace_bytes / HBM_BYTES)}

@@ -14,8 +14,9 @@ stops.  Each device operation of that window goes to the innermost program
 span open on its launching thread when its launch call began, matched by
 correlation id; nothing is guessed from the operations' own times.
 
-Where the program has no recorder, ``of`` returns None and runs nothing, so
-every reader of it leaves its metric out of the line.
+Where the program has no recorder, or the cell runs across cards (its
+ranks have ended by then), ``of`` returns None and runs nothing, so every
+reader of it leaves its metric out of the line.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def of(tr) -> Stages | None:
     global _last
     if _last[0] is not tr:
         got = None
-        timing = recorder()
+        timing = recorder() if tr.ranks is None else None
         if timing is not None:
             try:
                 got = measure(tr, timing)

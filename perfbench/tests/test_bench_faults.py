@@ -3,8 +3,9 @@ precision lower in the program's place) and the timed path broken
 underneath, each on a tiny cell with the harness's look for a card skipped.
 The faults a cell can have on one chip: a step that returns its state
 unchanged, half of the batch (of each pixel's rays) left out with the mean
-taken over the rest, and an answer altered where it is produced.  No cell
-runs across chips, so there is no exchange to leave out."""
+taken over the rest, and an answer altered where it is produced.  The
+cell across cards, whose exchange between ranks can also be left out, has
+its own (test_bench_bands.py)."""
 
 import dataclasses
 
