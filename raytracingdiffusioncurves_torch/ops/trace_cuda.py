@@ -324,19 +324,30 @@ def build_cand_tables(
     band's tables have the frame's structure.  Segment lists of shift k are
     built at the wider wedge of sw << k samples (the JAX package's sw_t):
     the cone tests, the key guard's hazards and the chunk lists all see the
-    coarse wedge's angular span."""
+    coarse wedge's angular span.
+
+    Recorded as the span ``scene.cand_tables`` with the attributes
+    ``table_kind`` ("seg" or "chunk"), ``order`` ("id": slot-mode lists;
+    "dist": distance-ordered lists or chunk lists), ``cand_len`` (the
+    lists' slots; 0 for chunk lists only), ``wedges`` (the fan's wedges) and
+    ``wedge_shift``."""
     w, h = scene.width, scene.height
     n_px = h * w if n_px is None else n_px
     kind, shift = table_layout(scene, config, n_px, wedge_shift)
     if kind is None:
         return None
-    _, _, sw, _, tile_h, tiles_x, tiles_y, _ = _grid_geom(scene, config, w, n_px)
+    _, _, sw, n_wedges, tile_h, tiles_x, tiles_y, _ = _grid_geom(scene, config, w, n_px)
     grid = (
         w, h, camera.zoom_factor, camera.offset_x, camera.offset_y,
         config.rays_per_pixel, sw << shift, tiles_x, tiles_y, TILE_W, tile_h, px_start,
         config.diffusion_curve_save,
     )
-    return _build_tables(scene, config, kind, grid, None, key_guard)
+    seg = kind == "seg"
+    with span("scene.cand_tables", table_kind=kind,
+              order="id" if seg and scene.s_pad <= LEVEL_SLOTS else "dist",
+              cand_len=min(_cand_len_for(scene.s_pad), scene.s_pad) if seg else 0,
+              wedges=n_wedges, wedge_shift=shift):
+        return _build_tables(scene, config, kind, grid, None, key_guard)
 
 
 def _build_tables(scene, config, kind, grid, circles, key_guard) -> CandTables:

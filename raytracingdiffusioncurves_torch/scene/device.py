@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..utils.devices import resolve_device
-from ..utils.timing import spanned
+from ..utils import timing
 from . import geometry
 from .xml_loader import AttrTable, SceneTables
 
@@ -285,7 +285,6 @@ def _segment_breakpoints(scene: SceneTables, seg: int, k: int) -> np.ndarray:
     return np.array(sorted(ts), dtype=np.float64)
 
 
-@spanned("scene.build_device")
 def build_device_scene(
     scene: SceneTables,
     flatten_subdivisions: int = 16,
@@ -305,7 +304,53 @@ def build_device_scene(
     remain flattening breakpoints, so endpoint attribute limits are exact) —
     only closest-hit ordering near quantized-key ties can flip, the same
     MC-noise class as backend transcendental differences.  Measured: dolphin
-    28.8k -> 11.5k sub-segments, lady_bug 2.6k -> 1.3k."""
+    28.8k -> 11.5k sub-segments, lady_bug 2.6k -> 1.3k.
+
+    Recorded as the span ``scene.build_device`` with the attributes
+    ``sub_segments``, ``endcap_sub_segments`` (those of the curves' endcap
+    loops) and ``weighted_curves`` (curves whose weight or weight-degree
+    table leaves the defaults 1 and 0.5)."""
+    with timing.span("scene.build_device") as sp:
+        out, subs = _build_device_scene(scene, flatten_subdivisions, max_sagitta,
+                                        min_subdivisions, device)
+        if sp is not timing.NOOP:  # counted only while the recorder is on
+            sp.set(sub_segments=out.n_sub,
+                   endcap_sub_segments=int(subs[endcap_segments(scene)].sum()),
+                   weighted_curves=weighted_curves(scene))
+        return out
+
+
+# The weight and weight degree of a curve without tables of its own
+# (optixHello.cpp:94,466-472).
+DEFAULT_WM, DEFAULT_WD = 1.0, 0.5
+
+
+def endcap_segments(scene: SceneTables) -> np.ndarray:
+    """(n_segments,) bool: the endcap loops the loader synthesized, a
+    curve's first or last segment whose control polygon closes on its end
+    point (geometry.make_endcap_segment)."""
+    v = scene.vertices
+    first = scene.curve_index == 0
+    last = scene.curve_index == scene.curve_segment_count[scene.curve_map] - 1
+    closed = np.all(v[:, 0] == v[:, 3], axis=1)
+    return (first | last) & closed
+
+
+def weighted_curves(scene: SceneTables) -> int:
+    """Curves whose weight or weight-degree knots leave DEFAULT_WM and
+    DEFAULT_WD."""
+    n = 0
+    for c in range(scene.n_curves):
+        for table, default in ((scene.weight, DEFAULT_WM), (scene.weight_degree, DEFAULT_WD)):
+            start, count = table.index[c]
+            if np.any(table.values[start:start + count] != np.float32(default)):
+                n += 1
+                break
+    return n
+
+
+def _build_device_scene(scene, flatten_subdivisions, max_sagitta, min_subdivisions, device):
+    """build_device_scene's tables, and the sub-segments of each segment."""
     dev = resolve_device(device)
     if min_subdivisions is None:
         min_subdivisions = flatten_subdivisions
@@ -313,6 +358,7 @@ def build_device_scene(
     p0s: list[np.ndarray] = []
     p1s: list[np.ndarray] = []
     refine_rows: list[np.ndarray] = []  # ALLT_SRC_CTRL..ALLT_DT block
+    subs = np.zeros(scene.n_segments, np.int64)
 
     for seg in range(scene.n_segments):
         curve = int(scene.curve_map[seg])
@@ -345,6 +391,7 @@ def build_device_scene(
             )
         )
         ts = _segment_breakpoints(scene, seg, k_seg)
+        subs[seg] = len(ts) - 1
         pts = geometry.bezier_point(ctrl, ts)  # (B+1, 2)
         ders = geometry.bezier_derivative(ctrl, ts)
         if is_portal:
@@ -497,7 +544,7 @@ def build_device_scene(
         max_blur=scene.max_blur,
         uniform_wd=uniform_wd,
         uniform_wm=uniform_wm,
-    )
+    ), subs
 
 
 def intersect_consts(

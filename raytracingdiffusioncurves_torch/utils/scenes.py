@@ -8,7 +8,10 @@ it flattens to exactly 128 sub-segments (s_pad = 128), so it takes the
 per-(tile, wedge) segment candidate lists of the main path.  The XML
 follows the Orzan curve_set conventions of the JAX package's tests.
 
-``portal_weights_scene_xml`` is a second, small scene for the portal and
+``endcapped_scene_xml`` is the same scene with the reference arch.xml's
+features: endcaps on every curve and per-curve weight and weight degree.
+
+``portal_weights_scene_xml`` is a small scene for the portal and
 per-curve weight paths.
 
 ``dense_scene_xml`` draws line art of the density of the reference's
@@ -98,10 +101,9 @@ def portal_weights_scene_xml(width: int = 256, height: int = 256) -> str:
     return _document(width, height, curves)
 
 
-def seeded_scene_xml(seed: int = 0, width: int = 1024, height: int = 1024) -> str:
-    """Orzan curve_set XML of the seeded scene at ``width`` x ``height``
-    (the geometry scales with the canvas, so every size is the same
-    picture)."""
+def _seeded_curves(seed: int, width: int, height: int) -> list[dict]:
+    """The seeded scene's curves in draw order, as ``_curve_xml``'s keyword
+    arguments."""
     rng = np.random.default_rng(seed)
     size = np.array([width, height], np.float64)
     step = 0.1 * min(width, height)
@@ -116,14 +118,41 @@ def seeded_scene_xml(seed: int = 0, width: int = 1024, height: int = 1024) -> st
             pts.append(p.copy())
         cols = rng.integers(0, 256, (4, 3))
         blur = rng.uniform(0.5, 2.0, 2)
-        curves.append(
-            _curve_xml(
-                [tuple(q) for q in pts],
-                left=(tuple(cols[0]), tuple(cols[1])),
-                right=(tuple(cols[2]), tuple(cols[3])),
-                blur=tuple(blur),
-            )
-        )
+        curves.append(dict(
+            points=[tuple(q) for q in pts],
+            left=(tuple(cols[0]), tuple(cols[1])),
+            right=(tuple(cols[2]), tuple(cols[3])),
+            blur=tuple(blur),
+        ))
+    return curves
+
+
+def seeded_scene_xml(seed: int = 0, width: int = 1024, height: int = 1024) -> str:
+    """Orzan curve_set XML of the seeded scene at ``width`` x ``height``
+    (the geometry scales with the canvas, so every size is the same
+    picture)."""
+    return _document(width, height, [_curve_xml(**c) for c in _seeded_curves(seed, width, height)])
+
+
+# The random stream of endcapped_scene_xml's weights: (seed, WEIGHT_STREAM),
+# apart from the geometry's (seed).
+WEIGHT_STREAM = 1
+
+
+def endcapped_scene_xml(seed: int = 0, width: int = 1024, height: int = 1024) -> str:
+    """The seeded scene with the features of the reference's arch.xml:
+    geometry, colours and blur exactly ``seeded_scene_xml``'s, an endcap
+    on every curve, and on each curve a two-knot weight (in [0.5, 2.0]) and
+    weight degree (in [0.3, 1.1]), the ranges of ``portal_weights_scene_xml``,
+    drawn from a stream of their own.  The eight endcap loops double the
+    sub-segments (256 at 1024^2), past slot mode: the scene takes
+    distance-ordered segment lists, uncapped."""
+    weights = np.random.default_rng([seed, WEIGHT_STREAM])
+    curves = []
+    for c in _seeded_curves(seed, width, height):
+        weight = tuple(float(v) for v in np.round(weights.uniform(0.5, 2.0, 2), 3))
+        degree = tuple(float(v) for v in np.round(weights.uniform(0.3, 1.1, 2), 3))
+        curves.append(_curve_xml(**c, weight=weight, weight_degree=degree, use_endcap=True))
     return _document(width, height, curves)
 
 

@@ -12,7 +12,9 @@ profilers.  Here:
   the Unix clock that ``torch.profiler``'s device events use), its parent
   (the span open on its thread when it began), its thread and its
   attributes, into a list of ``CAPACITY`` spans; spans past it are counted
-  in ``dropped``.  ``drain()`` hands them over, ``disable()`` stops it.
+  in ``dropped``.  ``with span(...) as sp:`` ... ``sp.set(k=v)`` adds
+  attributes known only inside the block (a no-op while off).  ``drain()``
+  hands them over, ``disable()`` stops it.
 * ``PhaseTimer``: named phase accumulation with the reference's protocol
   (setup once, mean frame time) plus percentiles, with the JAX package's
   JSON keys; its phases are spans of the same record and clock, timed
@@ -80,6 +82,9 @@ class _Noop:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        pass
+
 
 NOOP = _Noop()
 
@@ -132,6 +137,11 @@ class _Open:
             self.cols[2][self.index] = self.end
             self.stack.pop()
         return False
+
+    def set(self, **attrs):
+        """Adds ``attrs`` to the span's attributes (for values known only
+        inside the block)."""
+        self.attrs.update(attrs)
 
     @property
     def span(self) -> Span:

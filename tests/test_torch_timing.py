@@ -11,6 +11,8 @@ records, on the CPU.
   frame, the own-table build with its blocking reads on the first resting
   frame, the grid gather on a later moving frame.
 * The CLI's ``--profile`` writes the spans into the Chrome trace.
+* The scene's build and the camera's table build carry their counts as
+  attributes set inside the block (``set``; nothing while off).
 """
 
 import json
@@ -21,7 +23,7 @@ import pytest
 import raytracingdiffusioncurves_torch as rt
 from raytracingdiffusioncurves_torch.cli import main
 from raytracingdiffusioncurves_torch.utils import timing
-from raytracingdiffusioncurves_torch.utils.scenes import seeded_scene_xml
+from raytracingdiffusioncurves_torch.utils.scenes import endcapped_scene_xml, seeded_scene_xml
 
 from conftest import make_scene_xml, simple_curve
 
@@ -129,8 +131,11 @@ def test_render_frame_records_its_stages(recorder):
     trace = next(i for i, s in enumerate(spans) if s.name == "trace")
     post = next(i for i, s in enumerate(spans) if s.name == "post")
     assert _names(spans, trace) == ["trace.tables", "trace.launch", "trace.normalize"]
+    tables = next(i for i, s in enumerate(spans) if s.name == "trace.tables")
+    assert _names(spans, tables)[0] == "scene.cand_tables"
     assert _names(spans, post) == ["post.bilateral", "post.unet", "post.blend", "post.blur"]
-    assert {s.attrs["frame"] for s in spans if not s.name.startswith("sync.")} == {0}
+    # sync.* and scene.* spans carry no frame id: they sit under spans that do
+    assert {s.attrs["frame"] for s in spans if not s.name.startswith(("sync.", "scene."))} == {0}
     ends = [s.end_ns for s in spans if s.parent == post]
     assert ends == sorted(ends)
 
@@ -139,6 +144,33 @@ def test_setup_records_parse_and_build(recorder):
     xml = seeded_scene_xml(0, 24, 24)
     rt.build_device_scene(rt.load_scene_from_string(xml), device="cpu")
     assert [s.name for s in timing.drain()] == ["scene.parse", "scene.build_device"]
+
+
+def test_set_adds_attributes_inside_the_block(recorder):
+    with timing.span("scene.build_device", a=1) as sp:
+        sp.set(b=2)
+    timing.disable()
+    with timing.span("scene.build_device") as off:
+        off.set(b=3)
+    assert off is timing.NOOP
+    assert [(s.name, s.attrs) for s in timing.drain()] == [("scene.build_device", {"a": 1, "b": 2})]
+
+
+@pytest.mark.parametrize("make, rpp, attrs, tables", [
+    # 256 sub-segments: uncapped distance-ordered lists
+    (endcapped_scene_xml, 16, {"sub_segments": 256, "endcap_sub_segments": 128,
+                               "weighted_curves": 4},
+     {"table_kind": "seg", "order": "dist", "cand_len": 256, "wedges": 4, "wedge_shift": 0}),
+    # 128 sub-segments: slot mode
+    (seeded_scene_xml, 128, {"sub_segments": 128, "endcap_sub_segments": 0,
+                             "weighted_curves": 0},
+     {"table_kind": "seg", "order": "id", "cand_len": 128, "wedges": 32, "wedge_shift": 0}),
+])
+def test_setup_spans_carry_the_scenes_and_tables_counts(recorder, make, rpp, attrs, tables):
+    dev = rt.build_device_scene(rt.load_scene_from_string(make(0, 64, 48)), device="cpu")
+    rt.build_cand_tables(dev, rt.Camera(), rt.RenderConfig(rays_per_pixel=rpp))
+    got = {s.name: s.attrs for s in timing.drain()}
+    assert got["scene.build_device"] == attrs and got["scene.cand_tables"] == tables
 
 
 def test_session_records_grid_build_own_tables_and_syncs(recorder):
