@@ -13,7 +13,7 @@ paths through the public entry points, checking the images:
   the shipped UNet (weights/denoiser_r3d.msgpack) as a short sequence (first
   frame, resting frames, a zoom step with a non-zero flow, resting frames),
   then the same sequence with the analytic denoiser, then progressive
-  passes;
+  passes; the blur kernel against its plain version on that frame ([blur]);
 * the dense-scene frame (BASELINE config 3): a generated line drawing of
   the lady_bug class (1536 padded sub-segments) at 1920x1088, 256 rays per
   pixel, the default config with the shipped UNet: capped distance-ordered
@@ -28,7 +28,10 @@ paths through the public entry points, checking the images:
   seg_max_count: 256 wedges, so the segment lists are wedge-coarsened
   (shift 2: four wedges share a table entry).  Coarse lists against the
   kernel's full sweep bitwise on the whole frame, the kernel against the
-  plain version on the last tile row (ray ids past 2^32), chained frames in
+  plain version on the last tile row (ray ids past 2^32), the blur kernel
+  against its plain version on the whole frame and on the first, second
+  and last of four row bands with their halos ([blur:bands:config5]),
+  chained frames in
   turns with the route without coarsening (chunk lists), the card alone,
   the bound ([config5:*]); the lady_bug class at shift 3 on a band against
   the full sweep, with its [dense_stats]; the CLI at that frame
@@ -105,6 +108,7 @@ from raytracingdiffusioncurves_torch.models import denoiser, renderer, train_den
 from raytracingdiffusioncurves_torch.ops import (  # noqa: E402
     _build,
     blur,
+    blur_cuda,
     conv_cuda,
     denoise,
     flow,
@@ -696,6 +700,70 @@ def progressive_sequence(dscene, cfg, net):
           weight_sums=[f"{w:.4e}" for _, w in sums], conv_launches=conv_cuda.LAUNCHES)
 
 
+def blur_phase(den, bmap, radius):
+    """[blur]: the kernel (csrc/blur.cu) against its plain version, bitwise,
+    on the denoised frame and its blur map, and both timed there and on its
+    first 1080 rows (the benchmark's frames); the bound reads the frame and
+    the map once and writes the frame (36 B a pixel) at 3.35e12 B/s."""
+    plain_ms, want = cuda_ms(lambda: blur.variable_gaussian_blur_plain(den, bmap, radius), 3)
+    blur_cuda.reset_launch_count()
+    got = blur.variable_gaussian_blur(den, bmap, radius)
+    torch.cuda.synchronize()
+    require(blur_cuda.LAUNCHES == 1 and torch.equal(got, want),
+            "blur kernel vs plain version: not bitwise equal, or not one launch")
+    kernel_ms, _ = cuda_ms(lambda: blur.variable_gaussian_blur(den, bmap, radius), 20)
+    n = 1080
+    d, b = den[:n], bmap[:n]
+    kernel_n_ms, got = cuda_ms(lambda: blur.variable_gaussian_blur(d, b, radius), 50)
+    plain_n_ms, want = cuda_ms(lambda: blur.variable_gaussian_blur_plain(d, b, radius), 3)
+    require(torch.equal(got, want), f"blur kernel vs plain version on {n} rows: not bitwise equal")
+    t0 = time.perf_counter()
+    for _ in range(100):
+        blur.variable_gaussian_blur(d, b, radius)
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    h, w = den.shape[:2]
+    phase("blur", size=f"{w}x{h}", radius=radius, bitwise=True, launches_per_call=1,
+          kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+          **{f"kernel_{n}_ms": f"{kernel_n_ms:.4f}", f"plain_{n}_ms": f"{plain_n_ms:.3f}",
+             f"bound_{n}_ms": f"{n * w * 36 / 3.35e9:.4f}"},
+          host_us_per_call=f"{host_us:.1f}")
+
+
+def blur_bands_phase(label, image, bmap, radius, n_bands):
+    """[blur:bands:<label>]: the band form (``halo=(top, bottom)``) as the
+    sharded tail calls it, on a band's rows plus the radius's rows that its
+    neighbours send, cut at the frame's edges: the first, the second and the
+    last of ``n_bands`` bands, each bitwise the plain version on the same
+    band inputs and its rows of the whole frame's blur, which is bitwise the
+    plain version too."""
+    h = image.shape[0]
+    rows = h // n_bands
+    whole = blur.variable_gaussian_blur(image, bmap, radius)
+    require(torch.equal(whole, blur.variable_gaussian_blur_plain(image, bmap, radius)),
+            f"blur:bands:{label}: whole frame, kernel vs plain version: not bitwise equal")
+    halos = []
+    for r0 in (0, rows, h - rows):
+        top, bottom = min(radius, r0), min(radius, h - r0 - rows)
+        band = slice(r0 - top, r0 + rows + bottom)
+        blur_cuda.reset_launch_count()
+        got = blur.variable_gaussian_blur(image[band], bmap[band], radius, halo=(top, bottom))
+        want = blur.variable_gaussian_blur_plain(image[band], bmap[band], radius,
+                                                 halo=(top, bottom))
+        torch.cuda.synchronize()
+        require(blur_cuda.LAUNCHES == 1 and torch.equal(got, want),
+                f"blur:bands:{label}: band at row {r0}, kernel vs plain version: not bitwise "
+                "equal, or not one launch")
+        require(torch.equal(got, whole[r0:r0 + rows]),
+                f"blur:bands:{label}: band at row {r0} != its rows of the whole frame's blur")
+        halos.append((r0, top, bottom))
+    require(any(t == b == radius for _, t, b in halos),
+            f"blur:bands:{label}: no band with the whole halo on both sides: {halos}")
+    phase(f"blur:bands:{label}", size=f"{image.shape[1]}x{h}", radius=radius, bands=n_bands,
+          band_rows=rows, checked=[f"{r0}+{rows}:{t}/{b}" for r0, t, b in halos],
+          band_eq_plain="bitwise", band_eq_whole="bitwise", whole_eq_plain="bitwise")
+
+
 def denoise_phases(smi):
     """The denoised frame: [conv_parity], [conv_bound], [denoise_parity],
     [denoised_trace_parity], [denoised_path], [denoise_breakdown].  Returns
@@ -776,6 +844,7 @@ def denoise_phases(smi):
           convs_ms=f"{sum(r['ms'] for r in rows):.3f}", apply_denoiser_ms=f"{whole_ms:.3f}",
           temporal_denoise_ms=f"{tden_ms:.3f}", blur_ms=f"{blur_ms:.3f}", blur_radius=radius,
           **{f"{r['name']}_ms": f"{r['ms']:.3f}" for r in rows})
+    blur_phase(den, bmap, radius)
     phase("denoise_breakdown:library", call="F.conv2d(bf16,channels_last)",
           total_ms=f"{sum(r['library_ms'] for r in rows):.3f}",
           **{f"{r['name']}_ms": f"{r['library_ms']:.3f}" for r in rows})
@@ -1307,6 +1376,10 @@ def config5_phases():
         require(torch.equal(a, b), "config5 frame: coarse lists != the kernel's full sweep")
     require(float(kern[1].sum()) > 0.0, "config5 frame: the trace has weight")
     del full
+    # the blur on the sharded cell's bands (four of 540 rows), kernel vs plain
+    image, bmap = normalized(kern, C5_H, C5_W, cfg)
+    blur_bands_phase("config5", image, bmap, blur.blur_radius(scene.max_blur), 4)
+    del image, bmap
     phase("config5:frame_parity", rays=rays, lists_eq_full="bitwise",
           full_sweep_ms=f"{sweep_ms:.1f}", full_sweep_pairs=f"{rays * scene.n_sub:.4e}")
     # the last tile row, ray ids past 2^32: the kernel vs the plain version
@@ -2829,9 +2902,11 @@ def main():
     trace_ms, sums = cuda_ms(lambda: trace_cuda.trace_sums_flat(dscene, cam, cfg, 0, 0, n_px, tables, gl), 5)
     norm_ms, (image, bmap) = cuda_ms(lambda: normalized(sums, SIZE, SIZE, cfg), 5)
     radius = blur.blur_radius(dscene.max_blur)
-    blur_ms, _ = cuda_ms(lambda: blur.variable_gaussian_blur(image, bmap, radius), 5)
+    blur_ms, blurred = cuda_ms(lambda: blur.variable_gaussian_blur(image, bmap, radius), 5)
+    require(torch.equal(blurred, blur.variable_gaussian_blur_plain(image, bmap, radius)),
+            "main path: blur kernel vs plain version: not bitwise equal")
     phase("breakdown", trace_ms=f"{trace_ms:.3f}", normalize_ms=f"{norm_ms:.3f}",
-          blur_ms=f"{blur_ms:.3f}", blur_radius=radius)
+          blur_ms=f"{blur_ms:.3f}", blur_radius=radius, blur_eq_plain="bitwise")
 
     # --- kernel vs plain on the main path's own call: full frame, lists
     # narrowed to seg_max_count ---

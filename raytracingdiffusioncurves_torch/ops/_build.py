@@ -11,9 +11,9 @@ compiler's output.
 Flags: ``sm_90a`` (Hopper) and no fast math for every source; IEEE division
 and square root are nvcc's defaults; ``-Xptxas -v`` writes each kernel's
 registers, shared memory and spills to the build log.  Each source adds its
-own flags (``SOURCE_FLAGS``): the trace and bilateral kernels build with
-``--fmad=false`` so that every multiply and add rounds on its own, as in
-their plain PyTorch versions; the convolution's products are exact in
+own flags (``SOURCE_FLAGS``): the trace, bilateral and blur kernels build
+with ``--fmad=false`` so that every multiply and add rounds on its own, as
+in their plain PyTorch versions; the convolution's products are exact in
 float32 and summed by the tensor cores, so it needs no flag of its own.
 
 This module is imported only by code that launches a kernel: the CPU tests
@@ -42,6 +42,7 @@ SOURCE_FLAGS = {
     "trace": ["--fmad=false"],
     "conv3x3": [],
     "bilateral": ["--fmad=false"],
+    "blur": ["--fmad=false"],
 }
 
 # ctypes signatures of each library's C entry points.
@@ -87,6 +88,16 @@ SIGNATURES = {
              _I, _I, _I, _I,  # n, h, w, c
              _L, _L, _L, _L,  # the image's strides (elements): batch, row, pixel, channel
              _I, _P, _F, _I,  # float4 staging, 25 spatial constants (host), inv_sc, bf16
+             _P],  # stream
+            _I,
+        ),
+        "rtdc_error_string": ([_I], ctypes.c_char_p),
+    },
+    "blur": {
+        "rtdc_variable_blur": (
+            [_P, _P, _P,  # image, sigma map, out
+             _I, _I, _I, _I, _I, _I,  # h_in, w, c, radius, top, h_out
+             _L, _L, _L, _L, _L,  # strides (elements): image row, pixel, channel; sigma row, pixel
              _P],  # stream
             _I,
         ),

@@ -15,7 +15,10 @@ The radius is a fixed tap bound (sized from the scene's maximum blur) and
 taps beyond the per-pixel ceil(3*sigma) get weight 0 — the same result as
 the reference's per-pixel loop.  An all-zero sigma map gives the input back
 exactly (every tap past k = 0 has weight 0), so no skip test is needed.
-Plain PyTorch: this was no Pallas kernel in the JAX package either.
+
+This was no Pallas kernel in the JAX package.  On the card it is one
+launch of the hand-written kernel ``csrc/blur.cu`` (``ops/blur_cuda.py``),
+bitwise equal to the plain version kept here, which is the CPU path.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import blur_cuda
 
 MINUM_SIGMA = 1e-6
 
@@ -75,7 +80,23 @@ def variable_gaussian_blur(image: torch.Tensor, sigma_map: torch.Tensor, radius:
     with that many of the frame's rows on each side, and the result is the
     band's rows alone, bitwise those of the whole frame's blur.  A side
     holds ``radius`` rows, or all the rows up to the frame's edge (where
-    the clamp then applies, as on the whole frame)."""
+    the clamp then applies, as on the whole frame).
+
+    A CUDA tensor takes one launch of the kernel (``blur_cuda``), bitwise
+    equal to ``variable_gaussian_blur_plain``; a CPU tensor takes the plain
+    version."""
+    device = image.device
+    if device.type == "cuda":
+        return blur_cuda.variable_blur(image, sigma_map, radius, halo)
+    if device.type != "cpu":
+        raise RuntimeError(f"no blur path for device {device}")
+    return variable_gaussian_blur_plain(image, sigma_map, radius, halo)
+
+
+def variable_gaussian_blur_plain(image: torch.Tensor, sigma_map: torch.Tensor, radius: int,
+                                 halo: tuple[int, int] = (0, 0)):
+    """The plain PyTorch version of ``variable_gaussian_blur``, on any device:
+    two passes of ``_variable_gauss_1d``."""
     top, bottom = halo
     out = _variable_gauss_1d(image, sigma_map, radius, axis=1)  # horizontal first
     return _variable_gauss_1d(out, sigma_map, radius, axis=0, first=top,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (trace, 3x3 convolution) against their plain
+"""The port's CUDA kernels (trace, 3x3 convolution, bilateral, blur) against their plain
 PyTorch versions, on the card.  Skips without a CUDA device (the kernels
 have no CPU mode).  Imports neither jax nor the JAX package, so it runs on a
 machine without them:
@@ -37,6 +37,13 @@ rendered 1080p frame read through its [..., :3] view, random images, the
 training batch and frames of 1 to 4 rows or columns; one launch a
 denoised frame.
 
+Blur: the kernel (csrc/blur.cu) bitwise equal to variable_gaussian_blur_plain
+on the same card: a rendered 1080p frame with its own blur map, random
+frames at 1080p and 1024^2 and at radii 0 to 300 (the tile narrowed), sigma
+maps past the radius and all zero, views read by their strides, the 4K
+frame's bands with their halos against the whole frame's rows; one launch a
+frame with the denoiser on, analytic or off.
+
 Training: the batched training forward (cuDNN's bf16 convolution, the
 batched bilateral) against the per-image forward on the plain convolution,
 and one train step against the same step on the CPU (loss 1e-3 relative,
@@ -54,6 +61,7 @@ from raytracingdiffusioncurves_torch.models import denoiser as dn
 from raytracingdiffusioncurves_torch.models import renderer
 from raytracingdiffusioncurves_torch.ops import bilateral_cuda as bc
 from raytracingdiffusioncurves_torch.ops import blur as tblur
+from raytracingdiffusioncurves_torch.ops import blur_cuda as tbc
 from raytracingdiffusioncurves_torch.ops import conv_cuda as cc
 from raytracingdiffusioncurves_torch.ops import denoise as tden
 from raytracingdiffusioncurves_torch.ops import trace_cuda as tc
@@ -755,6 +763,129 @@ def test_one_bilateral_launch_a_denoised_frame(cuda, learned):
     bc.reset_launch_count()
     img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
     assert bc.LAUNCHES == 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(img).all()
+
+
+# ---------------------------------------------------------------------------
+# the blur kernel
+# ---------------------------------------------------------------------------
+
+
+def _assert_blur_bitwise(img, sigma, radius, halo=(0, 0)):
+    """One launch of the kernel, bitwise the plain version on the same card."""
+    tbc.reset_launch_count()
+    got = tblur.variable_gaussian_blur(img, sigma, radius, halo)
+    assert tbc.LAUNCHES == 1
+    want = tblur.variable_gaussian_blur_plain(img, sigma, radius, halo)
+    torch.cuda.synchronize()
+    top, bottom = halo
+    assert got.shape == (img.shape[0] - top - bottom, *img.shape[1:]) and got.is_contiguous()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    return got
+
+
+def _blur_inputs(shape, radius, seed, device, sigma_scale=1.0):
+    """An image of noise around 0.5 and a sigma map uniform in [0, radius / 3]
+    (times ``sigma_scale``), a fifth of it 0."""
+    g = torch.Generator().manual_seed(seed)
+    img = 0.5 + 0.2 * torch.randn(shape, generator=g)
+    sigma = sigma_scale * radius / 3.0 * torch.rand(shape[:2], generator=g)
+    sigma = torch.where(torch.rand(shape[:2], generator=g) < 0.2, 0.0, sigma)
+    return img.to(device), sigma.to(device)
+
+
+def test_blur_kernel_on_a_rendered_frame(cuda):
+    """The arch1080_8rpp_unet frame (the seeded arch class at 1920x1080, 8
+    rays per pixel) with its own blur map and radius: the main path's
+    shape."""
+    w, h = 1920, 1080
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, w, h)), device=cuda)
+    raw, bmap = rt.trace_image(dt, rt.Camera(), rt.RenderConfig(rays_per_pixel=8), 0)
+    radius = tblur.blur_radius(dt.max_blur)
+    assert radius == 6 and float(bmap.max()) > 0.0
+    _assert_blur_bitwise(raw, bmap, radius)
+
+
+@pytest.mark.parametrize("h,w,radius", [(1080, 1920, 6), (1024, 1024, 6), (70, 101, 0),
+                                        (70, 101, 1), (70, 101, 24), (300, 50, 65),
+                                        (1200, 40, 300)],
+                         ids=["1080p", "1024sq", "radius0", "radius1", "radius24",
+                              "past_the_tallest_tile", "narrowed_tile"])
+def test_blur_kernel_on_random_frames(cuda, h, w, radius):
+    """Radius 65 is past the tallest tile (64 rows) and its rows pass 48 KB of
+    shared memory; radius 300 halves the tile to 1 row and 16 columns."""
+    img, sigma = _blur_inputs((h, w, 4), radius, h + w + radius, cuda)
+    got = _assert_blur_bitwise(img, sigma, radius)
+    if radius == 0:
+        assert torch.equal(got, img)
+
+
+@pytest.mark.parametrize("kind", ["past_the_radius", "all_zero"])
+def test_blur_kernel_sigma_maps(cuda, kind):
+    """A map whose ceil(3 sigma) exceeds the radius (the taps stop at the
+    radius), and an all-zero map (the image back, exactly)."""
+    radius = 6
+    img, sigma = _blur_inputs((90, 130, 4), radius, 7, cuda, sigma_scale=2.5)
+    if kind == "all_zero":
+        sigma = torch.zeros_like(sigma)
+    got = _assert_blur_bitwise(img, sigma, radius)
+    if kind == "all_zero":
+        assert torch.equal(got, img)
+    else:
+        assert float(torch.ceil(3.0 * sigma).max()) > radius
+
+
+@pytest.mark.parametrize("kind", ["transposed", "channel_view", "unaligned", "c3", "c1"])
+def test_blur_kernel_on_views(cuda, kind):
+    """Inputs the kernel reads by their strides, one float at a time: views
+    that are not contiguous, a base off 16 bytes, fewer than 4 channels."""
+    h, w, radius = 70, 101, 6
+    if kind == "transposed":
+        img, sigma = _blur_inputs((w, h, 4), radius, 1, cuda)
+        img, sigma = img.transpose(0, 1), sigma.t()
+    elif kind == "channel_view":
+        img, sigma = _blur_inputs((h, w, 6), radius, 2, cuda)
+        img = img[..., 1:5]
+    elif kind == "unaligned":
+        img, sigma = _blur_inputs((h, w, 4), radius, 3, cuda)
+        img = torch.empty(h * w * 4 + 1, device=cuda)[1:].view(h, w, 4).copy_(img)
+    else:
+        img, sigma = _blur_inputs((h, w, 3 if kind == "c3" else 1), radius, 4, cuda)
+    assert kind in ("c3", "c1") or not img.is_contiguous() or img.data_ptr() % 16
+    _assert_blur_bitwise(img, sigma, radius)
+
+
+def test_blur_kernel_on_4k_bands(cuda):
+    """The arch4k_still_4chip cell's bands: 3840x2160 in four bands of 540
+    rows, each on its rows plus the 6-row halo the exchange gives (0/6, 6/6,
+    6/6, 6/0), bitwise the whole frame's rows, and the whole frame bitwise
+    the plain version."""
+    h, w, radius = 2160, 3840, 6
+    img, sigma = _blur_inputs((h, w, 4), radius, 11, cuda)
+    whole = _assert_blur_bitwise(img, sigma, radius)
+    rows, halos = h // 4, []
+    for r0 in range(0, h, rows):
+        (ri, top, bottom), (rs, _, _) = (_band_region(t, r0, rows, radius) for t in (img, sigma))
+        halos.append((top, bottom))
+        got = _assert_blur_bitwise(ri, rs, radius, (top, bottom))
+        assert torch.equal(got, whole[r0 : r0 + rows]), r0
+    assert halos == [(0, 6), (6, 6), (6, 6), (6, 0)]
+
+
+@pytest.mark.parametrize("denoiser", ["unet", "analytic", "off"])
+def test_one_blur_launch_a_frame(cuda, denoiser):
+    size = 64
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, size, size)),
+                               device=cuda)
+    cfg = rt.RenderConfig(rays_per_pixel=8, rays_per_block=2048,
+                          use_denoiser=denoiser != "off")
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device=cuda) if denoiser == "unet" else None
+    st = rt.init_frame_state(size, size, device=cuda)
+    img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
+    tbc.reset_launch_count()
+    img, st = rt.render_frame(dt, rt.Camera(), st, cfg, denoiser=net)
+    assert tbc.LAUNCHES == 1
     torch.cuda.synchronize()
     assert torch.isfinite(img).all()
 
