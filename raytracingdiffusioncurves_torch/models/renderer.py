@@ -131,7 +131,6 @@ def _postprocess(
     state: FrameState,
     config: RenderConfig,
     scene: DeviceScene,
-    max_blur_radius: int | None,
     denoiser: torch.nn.Module | None,
     exchange=_whole_frame,
     warp=_warp_whole,
@@ -178,9 +177,7 @@ def _postprocess(
                     image, warped, state.frame, config.corrected_image_mix, halo=(top, bottom))
         next_prev = image
         if config.use_blur:
-            radius = max_blur_radius
-            if radius is None:
-                radius = config.max_blur_radius
+            radius = config.max_blur_radius
             if radius is None:
                 radius = blur_ops.blur_radius(scene.max_blur)
             if radius > 0:
@@ -208,7 +205,6 @@ def render_frame(
     camera: Camera,
     state: FrameState,
     config: RenderConfig,
-    max_blur_radius: int | None = None,
     denoiser: torch.nn.Module | None = None,
     cand_tables=None,
     gather_len: int | None = None,
@@ -230,7 +226,7 @@ def render_frame(
             scene, camera, config, state.frame, cand_tables, gather_len
         )
         image, next_prev = _postprocess(
-            image, blur_map, state, config, scene, max_blur_radius, denoiser
+            image, blur_map, state, config, scene, denoiser
         )
         return image, _next_state(state, next_prev, config)
 
@@ -276,7 +272,6 @@ def render_frame_progressive(
     prog: ProgressiveState,
     config: RenderConfig,
     reset: bool,
-    max_blur_radius: int | None = None,
     denoiser: torch.nn.Module | None = None,
     cand_tables=None,
     gather_len: int | None = None,
@@ -309,6 +304,6 @@ def render_frame_progressive(
                 image, blur_map = normalize_sums(
                     next_prog.color_sum, next_prog.weight_sum, next_prog.blur_sum, config)
         image, next_prev = _postprocess(
-            image, blur_map, state, config, scene, max_blur_radius, denoiser
+            image, blur_map, state, config, scene, denoiser
         )
         return image, _next_state(state, next_prev, config), next_prog

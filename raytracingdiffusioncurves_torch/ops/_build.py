@@ -28,7 +28,6 @@ import os
 import pathlib
 import shutil
 import subprocess
-import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -106,8 +105,6 @@ SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# Seconds and compiler output of the builds this process ran, per source.
-BUILD_LOG: dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -142,12 +139,11 @@ def build_all(names: list[str] | None = None) -> dict[str, pathlib.Path]:
         cmd = [_nvcc(), *nvcc_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, time.perf_counter(),
+            tmp,
         )
     failed = []
-    for n, (proc, tmp, t0) in procs.items():
+    for n, (proc, tmp) in procs.items():
         output, _ = proc.communicate()
-        BUILD_LOG[n] = {"seconds": time.perf_counter() - t0, "output": output}
         paths[n].with_suffix(".log").write_text(output)
         if proc.returncode != 0:
             failed.append(f"--- {n}.cu (exit {proc.returncode}) ---\n{output}")

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 MAX_GROUPS = 3
 
 # Launches of the CUDA convolution kernel since the last reset (one per
-# conv3x3 call on CUDA tensors).  chip_smoke.py reads it to show that the
+# conv3x3 call on CUDA tensors).  The tests read it to show that the
 # denoised frame went through the kernel.
 LAUNCHES = 0
 

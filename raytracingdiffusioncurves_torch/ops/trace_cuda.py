@@ -64,8 +64,8 @@ STAT_NAMES = (
 KERNEL_INSTANCES = ("id_order", "dist_order", "dist_order_stats")
 
 # Launches of the CUDA trace kernel since the last reset (one per
-# trace_sums_flat call on a CUDA tensor).  chip_smoke.py reads it to show
-# that the main path went through the kernel.
+# trace_sums_flat call on a CUDA tensor).  The tests read it to show that a
+# path went through the kernel.
 LAUNCHES = 0
 
 

@@ -66,9 +66,9 @@ from ..utils.timing import span
 # What this rank's collectives moved since its last frame began (each frame
 # function clears it first), in order: ("halo", bytes received, rows of the
 # band + halo region built) for each edge-strip exchange, ("gather", bytes
-# received, rows) for each whole-frame all_gather.  chip_smoke.py and the
-# tests read it to show what a frame moves and which rows its
-# post-processing read.
+# received, rows) for each whole-frame all_gather.  The tests read it to
+# show what a frame moves and which rows its post-processing read; the
+# benchmark reads it for the halo bytes of a frame.
 EXCHANGE_LOG: list[tuple[str, int, int]] = []
 
 
@@ -285,8 +285,7 @@ def _check_band_state(mesh: DeviceMesh, scene: DeviceScene, state: renderer.Fram
 
 
 def render_frame_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
-                         state: renderer.FrameState, config: RenderConfig,
-                         max_blur_radius: int | None = None, denoiser=None,
+                         state: renderer.FrameState, config: RenderConfig, denoiser=None,
                          cand_tables=None, gather_len: int | None = None):
     """Full multi-device frame: the band's trace, then the denoise + blur
     tail of ``renderer.render_frame`` on the band and its halos.  ``state``
@@ -301,16 +300,15 @@ def render_frame_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
     with span("frame", frame=state.frame):
         image, blur_map = trace_image_sharded(mesh, scene, camera, config, state.frame,
                                               cand_tables, gather_len)
-        image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
-                                                 max_blur_radius, denoiser, **band_hooks(mesh))
+        image, next_prev = renderer._postprocess(image, blur_map, state, config, scene, denoiser,
+                                                 **band_hooks(mesh))
         return image, renderer._next_state(state, next_prev, config)
 
 
 def render_frame_progressive_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
                                      state: renderer.FrameState,
                                      prog: renderer.ProgressiveState, config: RenderConfig,
-                                     reset: bool, max_blur_radius: int | None = None,
-                                     denoiser=None, cand_tables=None,
+                                     reset: bool, denoiser=None, cand_tables=None,
                                      gather_len: int | None = None):
     """Multi-device progressive pass (``renderer.render_frame_progressive``):
     the band's fresh sums are added to ``prog``, this rank's band of the
@@ -327,8 +325,8 @@ def render_frame_progressive_sharded(mesh: DeviceMesh, scene: DeviceScene, camer
             next_prog = renderer._accumulate(sums, prog, reset)
             image, blur_map = renderer.normalize_sums(
                 next_prog.color_sum, next_prog.weight_sum, next_prog.blur_sum, config)
-        image, next_prev = renderer._postprocess(image, blur_map, state, config, scene,
-                                                 max_blur_radius, denoiser, **band_hooks(mesh))
+        image, next_prev = renderer._postprocess(image, blur_map, state, config, scene, denoiser,
+                                                 **band_hooks(mesh))
         return image, renderer._next_state(state, next_prev, config), next_prog
 
 

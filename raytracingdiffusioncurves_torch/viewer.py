@@ -47,9 +47,10 @@ GRID_VIEWPORTS = 1.5
 # The zooms a grid serves: zoom_max / GRID_ZOOM_RANGE <= zoom <= zoom_max,
 # one step either way of the camera it was built for.  Deeper in, the
 # cells (one tile at zoom_max) hold ever more segments per tile: on the
-# dense-scene frame (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py's
-# zoom_depth_sweep) a grid rebuilt two to four steps in takes 28-38 ms less
-# per moving frame than the stale one, for one build of ~0.09 s.
+# dense-scene frame (NVIDIA H100 80GB HBM3, 700 W; the bring-up run that
+# PERF.md's Findings record) a grid rebuilt two to four steps in takes
+# 28-38 ms less per moving frame than the stale one, for one build of
+# ~0.09 s.
 GRID_ZOOM_RANGE = ZOOM_STEP**2
 
 

@@ -53,6 +53,7 @@ gradients 3e-2 relative L2: two libraries' bf16 convolutions).
 import dataclasses
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -152,6 +153,63 @@ def test_kernel_matches_plain_at_the_denoised_frames_launch_shape(cuda, w, h):
         assert torch.equal(a, b)
     plain = tc.trace_sums_plain(dt, cam, cfg, 2, 0, w * h, tabs)
     _assert_parity(_images(plain, h, w, cfg), _images(kern, h, w, cfg))
+
+
+@pytest.mark.parametrize("name,rpp", [("seeded", 4), ("seeded", 256), ("lady_bug", 16)])
+def test_kernel_matches_plain_at_the_trainers_launch_shapes(cuda, name, rpp):
+    """train_denoiser.generate's launches: a 192^2 scene flattened at 8
+    subdivisions, the first camera sample_example draws, blur and denoiser
+    off, a noisy and the target ray count, the frame's own tables."""
+    size = 192
+    xml = seeded_scene_xml(1, size, size) if name == "seeded" else dense_scene_xml(0, size, size, name)
+    dt = rt.build_device_scene(rt.load_scene_from_string(xml).with_size(size, size),
+                               flatten_subdivisions=8, device=cuda)
+    rng = np.random.default_rng([0, 0, 0])
+    zoom = float(np.exp(rng.uniform(np.log(0.3), np.log(2.0))))
+    off = rng.uniform(-100, 100, 2)
+    cam = rt.Camera(zoom, float(off[0]), float(off[1]))
+    cfg = rt.RenderConfig(rays_per_pixel=rpp, use_blur=False, use_denoiser=False, seed=0)
+    tabs = tc.build_cand_tables(dt, cam, cfg)
+    kern = tc.trace_sums_flat(dt, cam, cfg, 0, 0, size * size, tabs)
+    full = tc.trace_sums_flat(dt, cam, cfg, 0, 0, size * size, None)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, full):
+        assert torch.equal(a, b)
+    assert float(kern[1].sum()) > 0.0
+    plain = tc.trace_sums_plain(dt, cam, cfg, 0, 0, size * size, tabs)
+    _assert_parity(_images(plain, size, size, cfg), _images(kern, size, size, cfg))
+
+
+@pytest.mark.parametrize("name,rpp,shifted", [("seeded", 32, False), ("lady_bug", 64, False),
+                                              ("seeded", 1024, True), ("lady_bug", 512, True)],
+                         ids=["slot_lists", "capped_lists", "coarse_slot_lists",
+                              "coarse_capped_lists"])
+def test_band_launch_equals_its_rows_of_the_frame(cuda, name, rpp, shifted):
+    """A band of tile rows on tables built for the band (they take the
+    frame's wedge shift) equals the whole frame's launch on the frame's
+    tables on its rows, bit for bit: the RNG is keyed on the global ray id
+    and the card's kernel computes each ray alone.  What row bands rely on,
+    at the launch shapes of every kind of list."""
+    w = h = 256
+    if name == "seeded":
+        dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, w, h)),
+                                   device=cuda)
+    else:
+        dt = _dense_case(cuda, name, w, h)
+    cfg = rt.RenderConfig(rays_per_pixel=rpp, use_denoiser=False)
+    cam = rt.Camera(0.9, 3.0, -5.0)
+    _, _, _, n_wedges, tile_h, _, _, _ = tc._grid_geom(dt, cfg, w, w * h)
+    shift = tc.table_layout(dt, cfg)[1]
+    assert (shift > 0) == shifted and 2 * tile_h <= h
+    whole = tc.trace_sums_flat(dt, cam, cfg, 5, 0, w * h, tc.build_cand_tables(dt, cam, cfg))
+    px0, n_px = tile_h * w, tile_h * w
+    tabs = tc.build_cand_tables(dt, cam, cfg, px0, n_px)
+    assert tc.table_wedge_shift(tabs, n_wedges) == shift
+    band = tc.trace_sums_flat(dt, cam, cfg, 5, px0, n_px, tabs)
+    torch.cuda.synchronize()
+    for a, b in zip(band, whole):
+        assert torch.equal(a, b[px0 : px0 + n_px])
+    assert float(band[1].sum()) > 0.0
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 65])
@@ -1035,6 +1093,31 @@ def test_training_forward_on_the_card(cuda):
         got = model.forward_batch(b["noisy"], b["warped_prev"], b["aux"])
         want = model(b["noisy"], b["warped_prev"], b["aux"], conv=cc.conv3x3_plain)
     assert float((got - want).abs().max()) <= 2 * 2.0**-7
+
+
+def test_conv3x3_train_matches_plain_on_the_card(cuda):
+    """The train step's convolution (conv3x3_train: cuDNN's bf16 F.conv2d on
+    the batch) against the plain version image by image, at each of the
+    shipped UNet's nine layers on the activations of its batched forward
+    over 32 crops of 64^2 (the weights' biases give the bar its |b| term),
+    under the convolution's bar."""
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device=cuda)
+    b = _train_batch(cuda, n=32)
+    layers = []
+
+    def conv(xs, ks, bias, stride, relu, ups):
+        got = dn.conv3x3_train(xs, ks, bias, stride, relu, ups)
+        ref = torch.stack([cc.conv3x3_plain([x[i] for x in xs], ks, bias, stride, relu, ups)
+                           for i in range(len(xs[0]))])
+        _assert_conv_close(ref, got, bias)
+        layers.append(got.shape)
+        return got
+
+    with torch.no_grad():
+        analytic = dn.analytic_baseline(b["noisy"], b["warped_prev"])
+        net.residual(torch.cat([b["noisy"], b["warped_prev"], analytic, b["aux"]], -1).to(BF),
+                     conv)
+    assert len(layers) == 9 and layers[-1] == (32, 64, 64, 3)
 
 
 def test_train_step_on_the_card(cuda):

@@ -13,6 +13,7 @@ vs the JAX package, on the shipped checkpoints and seeded numpy inputs.
   23x37 (the reflect-pad path), frames 0 and 1.
 """
 
+import glob
 import os
 import re
 
@@ -241,11 +242,12 @@ def test_noise_level():
 
 
 def test_port_imports_no_jax_flax_or_msgpack():
-    """No module of the port and not chip_smoke.py imports jax, flax,
-    msgpack or the JAX package."""
+    """No module of the port and none of the scripts under tools/, which run
+    on the card, imports jax, flax, msgpack or the JAX package."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|optax|raytracingdiffusioncurves_tpu)\b",
                      re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = sorted(glob.glob(os.path.join(ROOT, "tools", "*.py")))
+    assert len(files) >= 2
     for base, _, names in os.walk(os.path.join(ROOT, "raytracingdiffusioncurves_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -31,6 +31,7 @@ import torch
 
 import raytracingdiffusioncurves_torch as rt
 import raytracingdiffusioncurves_tpu as rj
+from raytracingdiffusioncurves_torch.ops import blur as tblur
 from raytracingdiffusioncurves_torch.ops import trace_cuda as tc
 from raytracingdiffusioncurves_tpu.models import denoiser as jdn
 from raytracingdiffusioncurves_tpu.ops import flow as jflow
@@ -95,6 +96,24 @@ def test_default_config_renders_with_analytic_denoiser():
     assert cfg.use_denoiser
     img, st = rt.render_frame(dt, rt.Camera(), st, cfg)
     assert img.shape == (16, 16, 4) and torch.isfinite(img).all() and st.frame == 1
+
+
+def test_config_blur_radius_bounds_the_frames_blur():
+    """RenderConfig.max_blur_radius, not the scene's own radius, bounds the
+    blur's taps: the frame is bitwise the blur at that radius of the traced
+    frame, which the denoiser-off path keeps un-blurred as prev_image."""
+    size = 32
+    dt = rt.build_device_scene(rt.load_scene_from_string(seeded_scene_xml(0, size, size)),
+                               device="cpu")
+    radius = 3
+    assert radius != tblur.blur_radius(dt.max_blur)
+    cfg = rt.RenderConfig(rays_per_pixel=4, use_denoiser=False, max_blur_radius=radius)
+    img, st = rt.render_frame(dt, rt.Camera(), rt.init_frame_state(size, size, device="cpu"), cfg)
+    raw, bmap = rt.trace_image(dt, rt.Camera(), cfg, 0)
+    assert float(bmap.max()) > 0.0 and torch.equal(st.prev_image, raw)
+    assert torch.equal(img, tblur.variable_gaussian_blur(raw, bmap, radius))
+    assert not torch.equal(img, tblur.variable_gaussian_blur(raw, bmap,
+                                                             tblur.blur_radius(dt.max_blur)))
 
 
 def test_denoiser_not_ported_raises():

@@ -339,7 +339,8 @@ def test_hoisted_band_tables_on_a_dense_scene(ranks):
     chunks from the call's first pixel, and PyTorch's CPU kernels round the
     vector body and the tail of a chunk differently, so a pixel's last bit
     can depend on where its band starts; the card's kernel computes each ray
-    alone, and chip_smoke.py holds the bands bitwise to the whole frame."""
+    alone, and tests/test_torch_cuda.py holds the bands bitwise to the whole
+    frame."""
     assert all(r["dense_dist_ordered"] for r in ranks)
     assert ranks[0]["dense_gather_len"] is None
     dense = scene(strokes_xml())

@@ -1,10 +1,12 @@
-"""The ranks' side of ``test_torch_sharded.py``: what each spawned gloo rank
-runs.  Spawned ranks import the module that defines their function, so this
-one imports only torch, numpy and the port (no JAX): the scene XMLs come in
-as arguments, and every comparison with one process or with the JAX package
+"""The ranks' side of ``test_torch_sharded.py`` and of the row-band cases of
+``test_torch_cuda_paths.py``: what each spawned gloo rank runs.  Spawned
+ranks import the module that defines their function, so this one imports
+only torch, numpy and the port (no JAX): the scene XMLs come in as
+arguments, and every comparison with one process or with the JAX package
 stays in the test process."""
 
 import dataclasses
+import functools
 import os
 import sys
 
@@ -13,6 +15,8 @@ import torch
 
 import raytracingdiffusioncurves_torch as rt
 from raytracingdiffusioncurves_torch.models import denoiser as tdn
+from raytracingdiffusioncurves_torch.ops import conv_cuda, trace_cuda
+from raytracingdiffusioncurves_torch.ops.blur import blur_radius
 from raytracingdiffusioncurves_torch.parallel import sharded
 from raytracingdiffusioncurves_torch.utils.scenes import seeded_scene_xml
 
@@ -201,3 +205,109 @@ def fail_on_rank_1(rank, world):
         raise KeyError("rank 1 fails")
     # rank 0 waits in a collective that rank 1 never joins: it is ended
     torch.distributed.barrier()
+
+
+# ---------------------------------------------------------------------------
+# two ranks that share one card (test_torch_cuda_paths.py)
+# ---------------------------------------------------------------------------
+
+
+def band_sequences(mesh, device, cases, net):
+    """The row-band cases on ``device``: this rank's band (``mesh``) or the
+    whole frame (``mesh`` None).  ``cases``: name -> (scene XML,
+    RenderConfig keywords).  Each chains frames on hoisted tables narrowed
+    to their largest count ("dense" one, the others two), with ``net``
+    where the denoiser is on; then "unet" takes a zoom step and "off" two
+    progressive passes ("progressive").  Returns {name: a record a frame}
+    (host data), "reach" (the largest halo a stage reads) and "wedge_shift"
+    by case."""
+    if mesh is None:
+        tables, count, frame = rt.build_cand_tables, rt.seg_max_count, rt.render_frame
+        progressive, zoom = rt.render_frame_progressive, rt.add_zoom_flow
+        band_state, band_rows = (lambda st: st), (lambda h: h)
+    else:
+        tables = functools.partial(sharded.build_cand_tables_sharded, mesh)
+        count = functools.partial(sharded.seg_max_count_sharded, mesh)
+        frame = functools.partial(sharded.render_frame_sharded, mesh)
+        progressive = functools.partial(sharded.render_frame_progressive_sharded, mesh)
+        zoom = functools.partial(sharded.add_zoom_flow_sharded, mesh)
+        band_state = functools.partial(sharded.frame_state_sharded, mesh)
+        band_rows = lambda h: h // mesh.size()  # noqa: E731
+    out = {"reach": {}, "wedge_shift": {}}
+
+    def record(name, img, st, moved=False):
+        out.setdefault(name, []).append(dict(
+            image=img.cpu().numpy(), prev=st.prev_image.cpu().numpy(), frame=st.frame,
+            flow_zero=st.flow_is_zero, moved=moved,
+            launches=(trace_cuda.LAUNCHES, conv_cuda.LAUNCHES), log=list(sharded.EXCHANGE_LOG)))
+
+    def hoisted(dt, cam, cfg):
+        tabs = tables(dt, cam, cfg)
+        gl = count(dt, tabs)
+        return (tabs if gl is None else trace_cuda.narrow_cand_tables(tabs, gl)), gl
+
+    cam = rt.Camera()
+    for name, (xml, kw) in cases.items():
+        dt = rt.build_device_scene(rt.load_scene_from_string(xml), device=device)
+        cfg = rt.RenderConfig(**kw)
+        den = net if cfg.use_denoiser else None
+        radius = blur_radius(dt.max_blur)
+        out["reach"][name] = max(radius, tdn.band_halo(net)) if den is not None else radius
+        tabs, gl = hoisted(dt, cam, cfg)
+        n_wedges = trace_cuda._grid_geom(dt, cfg, dt.width, dt.width * dt.height)[3]
+        out["wedge_shift"][name] = trace_cuda.table_wedge_shift(tabs, n_wedges)
+        st = band_state(rt.init_frame_state(dt.width, dt.height, device=device))
+        trace_cuda.reset_launch_count()
+        conv_cuda.reset_launch_count()
+        for _ in range(1 if name == "dense" else 2):
+            img, st = frame(dt, cam, st, cfg, denoiser=den, cand_tables=tabs, gather_len=gl)
+            record(name, img, st)
+        if name == "unet":
+            zcam = rt.Camera(zoom_factor=0.9)
+            ztabs, zgl = hoisted(dt, zcam, cfg)
+            moved = dataclasses.replace(st, flow=zoom(st.flow, 1.0, 0.9))
+            img, st = frame(dt, zcam, moved, cfg, denoiser=den, cand_tables=ztabs, gather_len=zgl)
+            record(name, img, st, moved=not moved.flow_is_zero)
+        if name == "off":
+            st = band_state(rt.init_frame_state(dt.width, dt.height, device=device))
+            prog = rt.init_progressive_state(dt.width, band_rows(dt.height), device=device)
+            trace_cuda.reset_launch_count()
+            out["reach"]["progressive"] = radius
+            for reset in (True, False):
+                img, st, prog = progressive(dt, cam, st, prog, cfg, reset, cand_tables=tabs,
+                                            gather_len=gl)
+                record("progressive", img, st)
+    return out
+
+
+def unet_train_step(batch, device, group=None):
+    """One train step of the UNet at the shipped width (base 24) from a
+    seeded initial state on ``batch`` (host arrays), the gradients
+    all-reduced over ``group``: (loss, gradients by parameter name)."""
+    h, w = batch["noisy"].shape[1:3]
+    model, sched, opt = tdn.create_train_state(torch.Generator().manual_seed(0), h, w, 2e-3,
+                                               arch="unet", base=24, device=device)
+    loss = tdn.train_step(model, opt, sched,
+                          {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                          group=group)
+    return float(loss), {n: p.grad.cpu().numpy() for n, p in model.named_parameters()}
+
+
+def rank_work_on_one_card(rank, world, device, cases, batch):
+    """A gloo rank on ``device`` ("cuda": every rank on cuda:0, which NCCL
+    refuses): the collectives on that device's tensors, band_sequences of
+    ``cases`` with the shipped UNet, and the data-parallel train step on
+    this rank's share of ``batch``.  Host data only."""
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh = sharded.make_mesh(world, device_type=device)
+    probe = sharded.gather_rows(mesh, torch.full((4,), float(rank), device=device))
+    top = torch.tensor([rank + 3], dtype=torch.int64, device=device)
+    torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+    out = {"collectives": (probe.device.type, probe.tolist(), int(top))}
+    net = rt.net_for_params(rt.load_params(WEIGHTS), device=device)
+    out["bands"] = band_sequences(mesh, device, cases, net)
+    share = batch["noisy"].shape[0] // world
+    out["train"] = unet_train_step({k: v[rank * share : (rank + 1) * share]
+                                    for k, v in batch.items()}, device, sharded.group(mesh))
+    return out

@@ -19,8 +19,9 @@ of ``weights/denoiser.msgpack``'s CNN at 1920x1088: per round the variants
 in order, then in reverse in the next (A B, B A, ...), so that a drift of
 the card's clocks falls on all alike.  Each time is the mean of ``--reps``
 calls between CUDA events.  Every variant's output must equal
-``as_built``'s bit for bit, and ``as_built``'s must hold the bars of
-``chip_smoke.py`` against the plain version.
+``as_built``'s bit for bit, and ``as_built``'s must hold the convolution's
+bars against the plain version (``conv_close``: at least 99% of values
+bitwise equal, none off by more than 2^-7 (2 |y| + |bias|)).
 
 Prints one line per shape (each variant's times per round), one per variant
 (the sums of the nine UNet layers per round; registers of each
@@ -47,11 +48,49 @@ if not torch.cuda.is_available():
     print("conv_ab: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
     sys.exit(2)
 
-from chip_smoke import conv_close, unet_layers  # noqa: E402
 from raytracingdiffusioncurves_torch.ops import _build, conv_cuda  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "conv_ab"
 BOUND_LINE = "static constexpr bool THREE_BLOCKS = S == 1 && WM * NT == 24;"
+
+
+def unet_layers(h, w, base=24, cin0=11):
+    """The nine convolutions of the UNet on an (h, w) frame: (name, input
+    height and width as the taps see them, channels per group, Cout, stride,
+    relu, upsample flag per group)."""
+    c = base
+    return [
+        ("enc0a", h, w, (cin0,), c, 1, True, (False,)),
+        ("enc0b", h, w, (c,), c, 1, True, (False,)),
+        ("enc1a", h, w, (c,), 2 * c, 2, True, (False,)),
+        ("enc1b", h // 2, w // 2, (2 * c,), 2 * c, 1, True, (False,)),
+        ("enc2a", h // 2, w // 2, (2 * c,), 4 * c, 2, True, (False,)),
+        ("enc2b", h // 4, w // 4, (4 * c,), 4 * c, 1, True, (False,)),
+        ("dec1", h // 2, w // 2, (4 * c, 2 * c), 2 * c, 1, True, (True, False)),
+        ("dec0", h, w, (2 * c, c), c, 1, True, (True, False)),
+        ("out", h, w, (c,), 3, 1, False, (False,)),
+    ]
+
+
+def conv_close(ref, got, bias):
+    """Kernel vs plain version of the convolution.  Both multiply the same
+    bf16 values; only the order of the float32 sum differs, which moves the
+    rounded accumulator by at most one bf16 step before the bias is added,
+    and the sum with the bias is rounded once more.  Bar: at least 99% of
+    values bitwise equal, none off by more than one step of the accumulator
+    plus one of the result, |diff| <= 2^-7 * (2 |y| + |bias|).  Raises
+    RuntimeError past the bar.  Returns (share equal, largest difference as
+    a share of that bar, max |diff|)."""
+    ref, got = ref.float(), got.float()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("conv output not finite")
+    d = (ref - got).abs()
+    step = 2.0**-7 * (2.0 * torch.maximum(ref.abs(), got.abs()) + bias.float().abs())
+    steps = float((d / step.clamp_min(1e-30)).max())
+    equal = float((ref == got).float().mean())
+    if equal < 0.99 or steps > 1.0:
+        raise RuntimeError(f"conv bitwise-equal share {equal}, off by {steps} of the rounding bar")
+    return equal, steps, float(d.max())
 
 
 def variant_sources(extra: list[str]) -> dict[str, str]:
