@@ -97,7 +97,13 @@ class CandTables(NamedTuple):
     the scene's enclosing circle (cx, cy, r) and the largest key slack of
     the key guard (0 without it).  The kernel reads the first min(count, L)
     entries of each list unchecked: build the tables with
-    build_cand_tables."""
+    build_cand_tables.
+
+    ``row_cuts``: set on a rank's tables of a row split by work
+    (``parallel/sharded.py::build_cand_tables_sharded``): the frame's row
+    cuts 0 = c_0 < c_1 < ... < c_n = H, rank r's tables covering rows
+    [c_r, c_r+1); None from every other table build, for tables of the
+    band their caller names."""
 
     ids: torch.Tensor | None
     counts: torch.Tensor | None
@@ -107,6 +113,7 @@ class CandTables(NamedTuple):
     chunk_lbs: torch.Tensor | None = None
     chunk_counts: torch.Tensor | None = None
     circle: torch.Tensor | None = None
+    row_cuts: tuple[int, ...] | None = None
 
     @property
     def dist_ordered(self) -> bool:
@@ -116,7 +123,11 @@ class CandTables(NamedTuple):
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self if t is not None)
+        return sum(t.numel() * t.element_size() for t in self if isinstance(t, torch.Tensor))
+
+
+# The CandTables fields indexed by (tile or cell, table wedge).
+_CELL_FIELDS = ("ids", "counts", "lbs", "horizon", "chunk_ids", "chunk_lbs", "chunk_counts")
 
 
 def _cand_len_for(s_pad: int) -> int:
@@ -407,11 +418,17 @@ def seg_max_count(scene: dev.DeviceScene, cand_tables: CandTables | None) -> int
 def narrow_cand_tables(cand_tables: CandTables, gather_len: int) -> CandTables:
     """Slot-mode tables with each list cut to ``gather_len`` slots (call
     with seg_max_count's value; an under-certified length drops candidates).
-    Distance-ordered tables pass through unchanged."""
+    Distance-ordered tables pass through unchanged; every other field
+    (``row_cuts`` too) is kept."""
     gl = max(int(gather_len), 1)
     if cand_tables.dist_ordered or cand_tables.ids.shape[-1] <= gl:
         return cand_tables
-    return CandTables(cand_tables.ids[..., :gl].contiguous(), cand_tables.counts)
+    return cand_tables._replace(ids=cand_tables.ids[..., :gl].contiguous())
+
+
+def tile_rows(scene: dev.DeviceScene, config: RenderConfig) -> int:
+    """Pixel rows of one row of the kernel's tiles (tile_h)."""
+    return _grid_geom(scene, config, scene.width, scene.width)[4]
 
 
 # ---------------------------------------------------------------------------
@@ -546,8 +563,8 @@ def grid_tables(
     row."""
     cid = grid_cells(grid, scene, camera, config, px_start, n_px)
     t = grid.tables
-    picked = [None if f is None else f.index_select(0, cid) for f in t[:-1]]
-    return CandTables(*picked, circle=t.circle)
+    return t._replace(**{name: getattr(t, name).index_select(0, cid) for name in _CELL_FIELDS
+                         if getattr(t, name) is not None})
 
 
 def grid_covers(
@@ -691,18 +708,26 @@ def trace_sums_plain(
     segment list and the members of the listed chunks) and take the exact
     (key, id) minimum over them, with none of the kernel's early exits: the
     kernel's arithmetic without its shortcuts.  Conservative tables give
-    the sums of the full sweep bit for bit."""
+    the sums of the full sweep bit for bit.
+
+    The chunks lie on the frame's pixel grid: chunk k holds the frame's
+    pixels [k P, (k + 1) P), P the largest divisor of a tile row's pixels
+    within the pair budget, cut to the call's pixels.  PyTorch's CPU
+    kernels round a vector body and its tail differently, so a pixel's last
+    bit can depend on its chunk; on this grid a call on any run of whole
+    tile rows computes each pixel in the chunk the whole frame's call does."""
     w = scene.width
     rpp = config.rays_per_pixel
     device = scene.device
     rays_per_chunk = _PLAIN_CHUNK_PAIRS[device.type == "cuda"] // max(scene.s_pad, LEVEL_SLOTS)
-    px_chunk = max(1, min(n_px, rays_per_chunk // rpp))
     _, _, sw, n_wedges, tile_h, tiles_x, _, _ = _grid_geom(scene, config, w, n_px)
+    pitch = _largest_divisor(tile_h * w, max(1, rays_per_chunk // rpp))
     csum = torch.empty((n_px, 3), dtype=torch.float32, device=device)
     wsum = torch.empty((n_px,), dtype=torch.float32, device=device)
     bsum = torch.empty((n_px,), dtype=torch.float32, device=device)
-    for p0 in range(0, n_px, px_chunk):
-        npx = min(px_chunk, n_px - p0)
+    p0 = 0
+    while p0 < n_px:
+        npx = min(((px_start + p0) // pitch + 1) * pitch - px_start, n_px) - p0
         pixel_rel = (p0 + torch.arange(npx, device=device)).repeat_interleave(rpp)
         sample_ids = torch.arange(rpp, device=device).repeat(npx)
         origins, dirs = intersect.make_rays(
@@ -720,7 +745,14 @@ def trace_sums_plain(
         csum[p0 : p0 + npx] = torch.sum(color * weight[..., None], dim=1)
         wsum[p0 : p0 + npx] = torch.sum(weight, dim=1)
         bsum[p0 : p0 + npx] = torch.sum(blur * weight, dim=1)
+        p0 += npx
     return csum, wsum, bsum
+
+
+def _largest_divisor(n: int, most: int) -> int:
+    """The largest divisor of ``n`` not above ``most`` (>= 1)."""
+    return max(q for d in range(1, math.isqrt(n) + 1) if n % d == 0
+               for q in (d, n // d) if q <= most)
 
 
 # ---------------------------------------------------------------------------

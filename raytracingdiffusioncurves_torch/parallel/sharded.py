@@ -5,16 +5,35 @@ parallelism is one CUDA thread per pixel.  The JAX package shards the pixel
 grid over a device mesh's ``rows`` axis with ``shard_map``; this module is
 its counterpart in ``torch.distributed``, one process (rank) per device:
 
-* the H x W pixel grid is cut into contiguous row bands, band i on rank i
-  (``px_start = rank * rows_local * W``); the scene tables are small and
-  every rank holds them whole;
-* the trace needs no communication: each rank runs the trace kernel on its
-  own band (``trace_cuda.trace_sums_flat``), and because the RNG is keyed on
-  the global ray id the band's sums are bitwise those of a one-device frame;
-* the camera-dependent acceleration tables are built per band
-  (``build_cand_tables_sharded``); ``seg_max_count_sharded`` takes the
-  slot-mode lists' certified length as the max over ranks, so every rank
-  narrows alike;
+* the H x W pixel grid is cut into contiguous, equal output bands, band i
+  on rank i (``px_start = rank * rows_local * W``): each rank returns and
+  post-processes its band, and holds its band of the state; the scene
+  tables are small and every rank holds them whole;
+* the trace's rows are split by work, not by output band, where the
+  tables are hoisted (``build_cand_tables_sharded``): in set-up the ranks
+  time, in turn, each its trace of its output band on the band's tables
+  (one small all_reduce a turn shares the time), and every rank cuts the
+  frame into the n contiguous ranges of whole tile rows whose largest
+  estimated time is the least, the rows of a timed range sharing its
+  time; a few
+  such rounds (each rank timing its new range on its new tables) refine
+  the cuts (``_split_by_work``).  The list lengths of the tables do not
+  predict the trace's time well enough to cut by (PERF.md).  Each rank
+  keeps the tables of its own range, which carry the cuts
+  (``CandTables.row_cuts``).  Every range takes the frame's table layout
+  (a cut that would change a range's kind or wedge shift is not taken),
+  and a frame of fewer tile rows than ranks keeps the equal bands, as do
+  in-frame tables and full-sweep scenes, which have no set-up to time in:
+  their trace ranges are the output bands;
+* each rank traces its range (``trace_cuda.trace_sums_flat``); the RNG is
+  keyed on the global ray id, so a pixel's sums are bitwise a one-device
+  frame's whichever rank traces them.  Then one exchange hands each output
+  band the rows that other ranks traced (``_rebalance``, the span
+  ``trace.rebalance``): every rank sends the rows of its range outside its
+  band, its five float32 sums a pixel, as one strip padded to the longest
+  such run of any rank, in one all_gather;
+* ``seg_max_count_sharded`` takes the slot-mode lists' certified length as
+  the max over ranks, so every rank narrows alike;
 * post-processing (the denoiser and the variable blur, whose windows cross
   band edges) is the one-device tail, ``renderer._postprocess``, run on the
   band with this module's hooks: each filter reads the band plus the rows
@@ -64,12 +83,18 @@ from ..scene.device import DeviceScene
 from ..utils.timing import span
 
 # What this rank's collectives moved since its last frame began (each frame
-# function clears it first), in order: ("halo", bytes received, rows of the
-# band + halo region built) for each edge-strip exchange, ("gather", bytes
-# received, rows) for each whole-frame all_gather.  The tests read it to
-# show what a frame moves and which rows its post-processing read; the
-# benchmark reads it for the halo bytes of a frame.
+# function clears it first), in order: ("rebalance", bytes received, rows of
+# its output band traced by other ranks) for the trace's exchange,
+# ("halo", bytes received, rows of the band + halo region built) for each
+# edge-strip exchange, ("gather", bytes received, rows) for each
+# whole-frame all_gather.  The tests read it to show what a frame moves and
+# which rows its post-processing read; the benchmark reads it for the halo
+# and rebalance bytes of a frame.
 EXCHANGE_LOG: list[tuple[str, int, int]] = []
+
+# Most rounds of the set-up timing that splits the trace's rows by work
+# (``_split_by_work``).
+SPLIT_ROUNDS = 3
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = "rows",
@@ -100,6 +125,18 @@ def _band(mesh: DeviceMesh, scene: DeviceScene) -> tuple[int, int]:
     return mesh.get_local_rank() * n_px, n_px
 
 
+def trace_rows(mesh: DeviceMesh, scene: DeviceScene, cand_tables=None) -> tuple[int, int]:
+    """(first row, end row) of the frame that this rank traces with
+    ``cand_tables``: its range of a split by work (their ``row_cuts``), else
+    its output band."""
+    rank = mesh.get_local_rank()
+    cuts = None if cand_tables is None else cand_tables.row_cuts
+    if cuts is None:
+        rows = _local_rows(mesh, scene.height)
+        return rank * rows, rank * rows + rows
+    return cuts[rank], cuts[rank + 1]
+
+
 def group(mesh: DeviceMesh):
     """The mesh's process group: ``models.denoiser.train_step(group=)``
     averages the gradients of a data-parallel step over it."""
@@ -109,21 +146,132 @@ def group(mesh: DeviceMesh):
 
 def build_cand_tables_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
                               config: RenderConfig):
-    """This rank's camera-dependent acceleration tables: those of its own
-    row band (the ``px_start`` the sharded trace uses), so passing them to
-    ``trace_image_sharded``/``render_frame_sharded`` hoists the per-frame
-    prepass like the one-device ``build_cand_tables``.  Every band takes the
-    full frame's wedge shift (``trace_cuda.table_layout``), so all ranks'
-    tables share one structure.  None for scenes that take the full sweep."""
+    """This rank's camera-dependent acceleration tables, for
+    ``trace_image_sharded``/``render_frame_sharded`` to hoist the per-frame
+    prepass like the one-device ``build_cand_tables``: those of its trace
+    range of the split by work (``_split_by_work``), carrying the cuts in
+    ``row_cuts``, or of its output band where the split keeps the equal
+    bands.  Every range takes the full frame's wedge shift and one table
+    kind (``trace_cuda.table_layout``), so all ranks' tables share one
+    structure.  None for scenes that take the full sweep."""
     px_start, n_px = _band(mesh, scene)
-    return trace_cuda.build_cand_tables(scene, camera, config, px_start=px_start, n_px=n_px)
+    tables = trace_cuda.build_cand_tables(scene, camera, config, px_start=px_start, n_px=n_px)
+    if tables is None or -(-scene.height // trace_cuda.tile_rows(scene, config)) < mesh.size():
+        return tables
+    return _split_by_work(mesh, scene, camera, config, tables)
+
+
+def _split_by_work(mesh: DeviceMesh, scene: DeviceScene, camera: Camera, config: RenderConfig,
+                   band_tables):
+    """This rank's tables of the trace split by work, from its output band's
+    (``band_tables``), timed in set-up.  The rows start out costing alike.
+    Each of at most SPLIT_ROUNDS rounds times every rank's trace of its
+    range (``_trace_ms_in_turn``), spreads each range's time over its rows
+    in proportion to their estimates, and cuts the frame anew into n
+    contiguous ranges of whole tile rows whose largest
+    estimated time is the least possible (``_minmax_partition``), to be
+    timed in the next round on tables built for them.  The rounds stop
+    early where the new cuts repeat, are not estimated below the largest
+    time just measured, or change a range's table layout.  The cuts whose
+    largest measured time is least are kept (the equal bands' own tables,
+    ``row_cuts`` None, where those are the bands).  Every rank computes the
+    cuts from the same shared times, so all hold the same."""
+    n, rank, h, w = mesh.size(), mesh.get_local_rank(), scene.height, scene.width
+    rows = h // n
+    tile_h = trace_cuda.tile_rows(scene, config)
+    layout = trace_cuda.table_layout(scene, config, rows * w)
+    cuts, tables = tuple(r * rows for r in range(n + 1)), band_tables
+    best = None  # (largest time, cuts, tables)
+    estimate = [1.0] * h  # by row of the frame
+    for round_ in range(SPLIT_ROUNDS):
+        times = _trace_ms_in_turn(mesh, scene, camera, config, cuts, tables)
+        if best is None or max(times) < best[0]:
+            best = (max(times), cuts, tables)
+        if round_ + 1 == SPLIT_ROUNDS:
+            break
+        for a, b, t in zip(cuts, cuts[1:], times):
+            scale = t / sum(estimate[a:b])
+            estimate[a:b] = [e * scale for e in estimate[a:b]]
+        per_tile_row = [sum(estimate[r : r + tile_h]) for r in range(0, h, tile_h)]
+        bounds = _minmax_partition(per_tile_row, n)
+        new = tuple(min(b * tile_h, h) for b in bounds)
+        if (new == cuts
+                or max(sum(per_tile_row[a:b]) for a, b in zip(bounds, bounds[1:])) >= max(times)
+                or any(trace_cuda.table_layout(scene, config, (b - a) * w) != layout
+                       for a, b in zip(new, new[1:]))):
+            break
+        cuts = new
+        tables = trace_cuda.build_cand_tables(scene, camera, config, cuts[rank] * w,
+                                              (cuts[rank + 1] - cuts[rank]) * w)
+    _, cuts, tables = best
+    return band_tables if tables is band_tables else tables._replace(row_cuts=cuts)
+
+
+def _trace_ms_in_turn(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
+                      config: RenderConfig, cuts: tuple[int, ...], tables) -> list[float]:
+    """Every rank's ``_trace_ms`` of its range of ``cuts`` on its ``tables``,
+    the ranks taking turns (one all_reduce a turn, which the others wait
+    for), so ranks that share a device each time their own trace alone."""
+    rank, times = mesh.get_local_rank(), []
+    for j in range(mesh.size()):
+        ms = _trace_ms(scene, camera, config, cuts[j], cuts[j + 1], tables) if j == rank else 0.0
+        t = torch.tensor([ms], dtype=torch.float64, device=scene.device)
+        dist.all_reduce(t, group=group(mesh))
+        times.append(t.item())
+    return times
+
+
+def _trace_ms(scene: DeviceScene, camera: Camera, config: RenderConfig, r0: int, r1: int,
+              tables) -> float:
+    """Wall ms of one trace of rows [r0, r1) on ``tables``, waited for: the
+    median of three, after one that is not timed."""
+    def run():
+        trace_cuda.trace_sums_flat(scene, camera, config, 0, r0 * scene.width,
+                                   (r1 - r0) * scene.width, tables)
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
+
+    run()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[1]
+
+
+def _minmax_partition(costs: list[float], n: int) -> list[int]:
+    """Boundaries 0 = b_0 < b_1 < ... < b_n = len(costs) of ``costs`` cut
+    into n non-empty contiguous groups whose largest sum is the least
+    possible (dynamic programming over prefix sums; the first optimum in
+    the order of the loops, so every caller with the same costs gets the
+    same cuts)."""
+    t = len(costs)
+    prefix = [0.0]
+    for c in costs:
+        prefix.append(prefix[-1] + c)
+    # best[k][e]: the least largest sum of the first e items in k groups
+    inf = float("inf")
+    best = [[inf] * (t + 1) for _ in range(n + 1)]
+    arg = [[0] * (t + 1) for _ in range(n + 1)]
+    best[0][0] = 0.0
+    for k in range(1, n + 1):
+        for e in range(k, t - (n - k) + 1):
+            for s in range(k - 1, e):
+                v = max(best[k - 1][s], prefix[e] - prefix[s])
+                if v < best[k][e]:
+                    best[k][e], arg[k][e] = v, s
+    bounds = [t]
+    for k in range(n, 0, -1):
+        bounds.append(arg[k][bounds[-1]])
+    return bounds[::-1]
 
 
 def seg_max_count_sharded(mesh: DeviceMesh, scene: DeviceScene, cand_tables) -> int | None:
     """``seg_max_count`` over every rank's tables (an all_reduce MAX), so
     every rank narrows its lists to one length; None where the tables are not
-    slot-mode lists (the same on every rank: the kind depends on the scene,
-    the config and the band size alone, the wedge shift on the full frame)."""
+    slot-mode lists (the same on every rank: ``build_cand_tables_sharded``
+    gives every rank tables of one kind and wedge shift)."""
     local = trace_cuda.seg_max_count(scene, cand_tables)
     if local is None:
         return None
@@ -135,26 +283,88 @@ def seg_max_count_sharded(mesh: DeviceMesh, scene: DeviceScene, cand_tables) -> 
 def trace_sums_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
                        config: RenderConfig, frame: int = 0, cand_tables=None,
                        gather_len: int | None = None):
-    """Raw trace sums of this rank's row band: (color_sum (rows, W, 3),
+    """Raw trace sums of this rank's output band: (color_sum (rows, W, 3),
     weight_sum (rows, W), blur_sum (rows, W)), bitwise the same rows of the
-    one-device sums.  ``cand_tables``: ``build_cand_tables_sharded`` output
-    for THIS camera (None builds the band's tables in-frame, as trace_image
-    does); ``gather_len``: ``seg_max_count_sharded``'s value."""
+    one-device sums.  The rank traces its ``trace_rows``; where they are a
+    range of a split by work, ``_rebalance`` then hands the sums to their
+    output bands.  ``cand_tables``: ``build_cand_tables_sharded`` output
+    for THIS camera, on every rank (None builds the band's tables in-frame,
+    as trace_image does); ``gather_len``: ``seg_max_count_sharded``'s
+    value."""
     rows = _local_rows(mesh, scene.height)
     w = scene.width
-    px_start, n_px = _band(mesh, scene)
+    r0, r1 = trace_rows(mesh, scene, cand_tables)
     if cand_tables is None:
-        cand_tables = trace_cuda.build_cand_tables(scene, camera, config, px_start, n_px)
-    csum, wsum, bsum = trace_cuda.trace_sums_flat(
-        scene, camera, config, frame, px_start, n_px, cand_tables, gather_len)
+        cand_tables = trace_cuda.build_cand_tables(scene, camera, config, r0 * w, (r1 - r0) * w)
+    sums = trace_cuda.trace_sums_flat(
+        scene, camera, config, frame, r0 * w, (r1 - r0) * w, cand_tables, gather_len)
+    if cand_tables is not None and cand_tables.row_cuts is not None:
+        with span("trace.rebalance", frame=frame):
+            band = _rebalance(mesh, sums, cand_tables.row_cuts, w)
+        sums = band[0:3].T, band[3], band[4]
+    csum, wsum, bsum = sums
     return csum.reshape(rows, w, 3), wsum.reshape(rows, w), bsum.reshape(rows, w)
+
+
+def _rebalance(mesh: DeviceMesh, sums, cuts: tuple[int, ...], w: int) -> torch.Tensor:
+    """This rank's output band of the frame's sums, (5, rows x W) (color
+    sums, weight sum, blur sum by pixel), from ``sums``, the flat sums of
+    its trace range [cuts[rank], cuts[rank + 1]), and the other ranks'.
+    Every rank j sends the rows of its range outside its own band (at most
+    one run above it and one below), as one strip of k rows, k the most any
+    rank sends: one all_gather of n strips (NCCL and gloo alike, as
+    ``_with_halo``), logged as ("rebalance", bytes received, rows of the
+    band that other ranks traced)."""
+    n, rank = mesh.size(), mesh.get_local_rank()
+    rows = cuts[-1] // n
+    csum, wsum, bsum = sums
+
+    def runs(j):  # the runs of rank j's range outside its band, top first
+        a, b = cuts[j], cuts[j + 1]
+        return [(lo, hi) for lo, hi in ((a, min(b, j * rows)), (max(a, (j + 1) * rows), b))
+                if lo < hi]
+
+    def put(dst, lo, hi):  # rows [lo, hi) of this rank's sums into dst (5, (hi - lo) W)
+        a, b = (lo - cuts[rank]) * w, (hi - cuts[rank]) * w
+        dst[0:3] = csum[a:b].T
+        dst[3] = wsum[a:b]
+        dst[4] = bsum[a:b]
+
+    k = max(sum(hi - lo for lo, hi in runs(j)) for j in range(n))
+    strip = torch.empty((5, k * w), dtype=wsum.dtype, device=wsum.device)
+    at = 0
+    for lo, hi in runs(rank):
+        put(strip[:, at * w : (at + hi - lo) * w], lo, hi)
+        at += hi - lo
+    own = max(0, min(cuts[rank + 1], (rank + 1) * rows) - max(cuts[rank], rank * rows))
+    parts = _all_gather(mesh, strip, "rebalance", rows - own)
+    band = torch.empty((5, rows * w), dtype=wsum.dtype, device=wsum.device)
+    for j in range(n):  # the ranges that meet this band, in row order
+        lo, hi = max(cuts[j], rank * rows), min(cuts[j + 1], (rank + 1) * rows)
+        if lo >= hi:
+            continue
+        dst = band[:, (lo - rank * rows) * w : (hi - rank * rows) * w]
+        if j == rank:
+            put(dst, lo, hi)
+            continue
+        at = 0
+        for a, b in runs(j):
+            if a <= lo < b:
+                dst.copy_(parts[j][:, (at + lo - a) * w : (at + hi - a) * w])
+                break
+            at += b - a
+    return band
 
 
 def trace_image_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
                         config: RenderConfig, frame: int = 0, cand_tables=None,
                         gather_len: int | None = None):
-    """Trace this rank's row band: (image (rows, W, 4), blur_map (rows, W))."""
-    with span("trace", frame=frame):
+    """Trace this rank's ``trace_rows`` and hand them to the output bands:
+    (image (rows, W, 4), blur_map (rows, W)) of this rank's output band.
+    The ``trace`` span carries the traced rows (``first_row``,
+    ``rows``)."""
+    r0, r1 = trace_rows(mesh, scene, cand_tables)
+    with span("trace", frame=frame, first_row=r0, rows=r1 - r0):
         sums = trace_sums_sharded(mesh, scene, camera, config, frame, cand_tables, gather_len)
         return renderer.normalize_sums(*sums, config)
 
@@ -287,14 +497,16 @@ def _check_band_state(mesh: DeviceMesh, scene: DeviceScene, state: renderer.Fram
 def render_frame_sharded(mesh: DeviceMesh, scene: DeviceScene, camera: Camera,
                          state: renderer.FrameState, config: RenderConfig, denoiser=None,
                          cand_tables=None, gather_len: int | None = None):
-    """Full multi-device frame: the band's trace, then the denoise + blur
-    tail of ``renderer.render_frame`` on the band and its halos.  ``state``
+    """Full multi-device frame: the trace of this rank's ``trace_rows``, handed
+    to the output bands, then the denoise + blur tail of
+    ``renderer.render_frame`` on the band and its halos.  ``state``
     is this rank's band of the FrameState (``frame_state_sharded``); returns
     (this rank's band of the image, its band of the next FrameState),
     bitwise the band's rows of ``render_frame``'s.  ``denoiser``: the module
     with the checkpoint's weights on this rank's device, or None for the
-    analytic pass.  A resting frame moves only edge strips between ranks; a
-    frame after a camera move also gathers the history for the warp."""
+    analytic pass.  A resting frame moves only edge strips between ranks,
+    after the traced rows on tables split by work; a frame after a camera
+    move also gathers the history for the warp."""
     _check_band_state(mesh, scene, state)
     EXCHANGE_LOG.clear()
     with span("frame", frame=state.frame):
@@ -318,8 +530,9 @@ def render_frame_progressive_sharded(mesh: DeviceMesh, scene: DeviceScene, camer
     next band ProgressiveState)."""
     _check_band_state(mesh, scene, state)
     EXCHANGE_LOG.clear()
+    r0, r1 = trace_rows(mesh, scene, cand_tables)
     with span("frame", frame=state.frame):
-        with span("trace", frame=state.frame):
+        with span("trace", frame=state.frame, first_row=r0, rows=r1 - r0):
             sums = trace_sums_sharded(mesh, scene, camera, config, state.frame, cand_tables,
                                       gather_len)
             next_prog = renderer._accumulate(sums, prog, reset)

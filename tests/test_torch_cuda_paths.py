@@ -302,16 +302,24 @@ def test_trainer_on_the_card(cuda, tmp_path):
     _assert_routes_close(net, cuda)
 
 
-# The row-band cases (torch_sharded_ranks.band_sequences): scene XML and
-# RenderConfig keywords.  The denoiser-off frame on slot-mode lists, the
-# denoised frame with the UNet (a zoom step), the dense frame with the UNet
-# (capped lists), and 1024 rays per pixel (lists of wedge shift 2).
+# The row-band cases (torch_sharded_ranks.band_sequences): scene XML,
+# RenderConfig keywords and camera.  The denoiser-off frame on slot-mode
+# lists, the denoised frame with the UNet (a zoom step), the dense frame
+# with the UNet (capped lists), 1024 rays per pixel (lists of wedge shift
+# 2), and the "off" frame zoomed out into the top rows on tiles of 8 rows,
+# whose trace the split by work cuts unequally (32 tile rows, timed by
+# torch_sharded_ranks.split_cost_ms: the real timer's cuts follow the
+# card's times, and the other cases take it).
 BAND_CASES = {
     "off": (seeded_scene_xml(0, 256, 256),
-            dict(rays_per_pixel=128, rays_per_block=2048, use_denoiser=False)),
-    "unet": (seeded_scene_xml(0, 192, 128), dict(rays_per_pixel=8)),
-    "dense": (dense_scene_xml(0, 192, 128, "lady_bug"), dict(rays_per_pixel=32)),
-    "coarse": (seeded_scene_xml(0, 256, 256), dict(rays_per_pixel=1024, use_denoiser=False)),
+            dict(rays_per_pixel=128, rays_per_block=2048, use_denoiser=False), rt.Camera()),
+    "unet": (seeded_scene_xml(0, 192, 128), dict(rays_per_pixel=8), rt.Camera()),
+    "dense": (dense_scene_xml(0, 192, 128, "lady_bug"), dict(rays_per_pixel=32), rt.Camera()),
+    "coarse": (seeded_scene_xml(0, 256, 256), dict(rays_per_pixel=1024, use_denoiser=False),
+               rt.Camera()),
+    "split": (seeded_scene_xml(0, 256, 256),
+              dict(rays_per_pixel=128, rays_per_block=512, use_denoiser=False),
+              rt.Camera(2.0, 0.0, -160.0)),
 }
 TRAIN_BATCH = 32
 
@@ -365,6 +373,28 @@ def test_band_frames_on_one_card_equal_one_process(cuda, card_ranks, one_process
             assert 0 < max(regions) <= rows + 2 * reach
             assert sum(kind == "gather" for kind, _, _ in g["log"]) == (2 if g["moved"] else 0)
     assert any(rec["moved"] for rec in whole) == (name == "unet")
+
+
+def test_trace_split_by_work_on_one_card_equals_one_process(cuda, card_ranks, one_process):
+    """The "split" case: the ranks' trace ranges are unequal whole tile rows
+    (8) from 0 to 256, the same on both ranks, as ``split_cost_ms`` cuts
+    them (the first 20 rows three times the others: rows 0-111 and
+    112-255), and the bands of every frame and of the history put
+    together are one process's whole frame, bit for bit (an off-by-one at
+    a cut would show in any row, not only in those near the bands' edges);
+    each frame hands the sums over in one "rebalance" exchange before the
+    blur's."""
+    whole = one_process["split"]
+    cuts = card_ranks[0]["bands"]["cuts"]["split"]
+    assert cuts == card_ranks[1]["bands"]["cuts"]["split"]
+    assert cuts == (0, 112, 256)
+    assert all(a < b and a % 8 == 0 for a, b in zip(cuts, cuts[1:]))
+    assert one_process["cuts"]["split"] is None
+    for i, w in enumerate(whole):
+        got = [res["bands"]["split"][i] for res in card_ranks]
+        assert np.array_equal(np.concatenate([g["image"] for g in got]), w["image"])
+        assert np.array_equal(np.concatenate([g["prev"] for g in got]), w["prev"])
+        assert all([kind for kind, _, _ in g["log"]] == ["rebalance", "halo"] for g in got)
 
 
 def test_data_parallel_train_step_on_one_card(cuda, card_ranks):

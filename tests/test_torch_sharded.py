@@ -2,13 +2,16 @@
 the CPU: two gloo ranks, spawned once for the module (free port, a join
 timeout of their own) to run ``torch_sharded_ranks.rank_work`` (no JAX in
 the ranks), and four ranks once for the UNet's halo wider than a band
-(``rank_work_wide_halo``), against one process and against the JAX
-package: its ``trace_image_sharded`` on its 8-device CPU mesh and its
-``render_frame`` on the same chained sequences (``jax_sequences``).
+(``rank_work_wide_halo``), both also for the trace split by work
+(``split_frames``), against one process and against the JAX package: its
+``trace_image_sharded`` on its 8-device CPU mesh and its ``render_frame`` on
+the same chained sequences (``jax_sequences``).
 
 Bars.  The sharded path is bitwise equal to one process: each rank traces
-its own band with the one-device code (the RNG is keyed on the global ray
-id) and post-processes its band plus the halo rows its filters reach, which
+its own band, or its range of the split by work, with the one-device code
+(the RNG is keyed on the global ray id; the plain version's chunks lie on
+the frame's pixel grid), hands traced rows to their bands, and
+post-processes its band plus the halo rows its filters reach, which
 the neighbours send as edge strips, with the one-device filters' band
 entries.  That holds for the trace, the chained frames (blur, analytic and
 learned denoiser, resting and moving: the history is warped whole and the
@@ -57,9 +60,10 @@ from conftest import make_scene_xml, simple_curve
 from test_torch_candidates_dense import strokes_xml
 from test_torch_renderer import _assert_denoised_close
 from test_torch_trace import assert_parity
-from torch_sharded_ranks import (DENSE_CFG, FRAME_CFG, MOVES, PROG_CFG, ROOT, TRACE_CFG,
-                                 WEIGHTS, fail_on_rank_1, move_config, new_model, rank_work,
-                                 rank_work_wide_halo, scene, seeded, train_batch)
+from torch_sharded_ranks import (DENSE_CFG, FRAME_CFG, MOVES, PROG_CFG, ROOT, SPLIT_CAMERA,
+                                 SPLIT_CFG, TRACE_CFG, WEIGHTS, fail_on_rank_1, move_config,
+                                 new_model, rank_work, rank_work_wide_halo, scene, seeded,
+                                 split_cost_ms, train_batch)
 
 RANKS_TIMEOUT = 240.0
 
@@ -254,13 +258,22 @@ def test_a_resting_frame_moves_only_edge_strips(ranks):
     two edge-strip exchanges and no whole-frame collective, each moving n x
     2 x halo x W x C x 4 bytes (C = 4 image channels, + 1 blur map for the
     blur) and building a region of the band plus the halo on its inner
-    side; a moving frame gathers the history (and the flow's row profile)
-    and a resting UNet frame's widest exchange is the UNet's halo of 20
-    rows of nine channels."""
+    side; where the trace is split by work (the denoiser off), the frame
+    first hands the traced rows to their bands (the "rebalance" entry: n
+    strips of the most rows a rank traced outside its band, 5 float32 sums
+    a pixel, and the rows of the band other ranks traced), then makes the
+    blur's exchange alone; a moving frame gathers the history (and the
+    flow's row profile) and a resting UNet frame's widest exchange is the
+    UNet's halo of 20 rows of nine channels."""
     w, rows, radius = 64, 32, 6
+    cuts = ranks[0]["split"]["cuts"]
+    own = [min(cuts[j + 1], (j + 1) * rows) - max(cuts[j], j * rows) for j in range(2)]
+    k = max(cuts[j + 1] - cuts[j] - own[j] for j in range(2))
     for rank, r in enumerate(ranks):
         assert r["rest_log"] == [("halo", 2 * 2 * 2 * w * 4 * 4, rows + 2),
                                  ("halo", 2 * 2 * radius * w * 5 * 4, rows + radius)]
+        assert r["split"]["frames"][1][2] == [("rebalance", 2 * k * w * 5 * 4, rows - own[rank]),
+                                              ("halo", 2 * 2 * radius * w * 5 * 4, rows + radius)]
         assert all(bytes_ < 64 * w * 4 * 4 for _, bytes_, _ in r["rest_log"])
         logs = [log for _, log in r["moves"]]
         assert [kind for kind, _, _ in logs[0]] == ["gather", "gather", "halo", "halo"]
@@ -333,14 +346,16 @@ def test_band_frame_state(ranks, one_process, jax_sequences):
 def test_hoisted_band_tables_on_a_dense_scene(ranks):
     """Per-band capped distance-ordered lists (strokes scene, 768 padded
     sub-segments).  Each rank's band sums equal one process's call on that
-    band with its own tables and the full sweep, bit for bit.  The gathered
-    frame equals the whole-frame call within 1e-6 (measured: 3 of 16384
-    values one float32 step apart): the plain CPU version cuts the rays into
-    chunks from the call's first pixel, and PyTorch's CPU kernels round the
-    vector body and the tail of a chunk differently, so a pixel's last bit
-    can depend on where its band starts; the card's kernel computes each ray
-    alone, and tests/test_torch_cuda.py holds the bands bitwise to the whole
-    frame."""
+    band with its own tables and the full sweep, bit for bit, and so does
+    the gathered frame the whole-frame call's.  PyTorch's CPU kernels round
+    the vector body and the tail of a chunk differently, so a pixel's last
+    bit can depend on its chunk of the plain version: its chunks lie on the
+    frame's pixel grid, a divisor of a tile row's pixels (here 256 of
+    4096), so a band that starts on a tile row, or on that grid as this
+    one does, computes every pixel in the whole frame's chunk (chunks cut
+    from the call's first pixel left 3 of 16384 values one float32 step
+    apart).  The card's kernel computes each ray alone, and
+    tests/test_torch_cuda.py holds the bands bitwise to the whole frame."""
     assert all(r["dense_dist_ordered"] for r in ranks)
     assert ranks[0]["dense_gather_len"] is None
     dense = scene(strokes_xml())
@@ -354,9 +369,117 @@ def test_hoisted_band_tables_on_a_dense_scene(ranks):
             np.testing.assert_array_equal(got.reshape(-1), a.numpy().reshape(-1))
             np.testing.assert_array_equal(got.reshape(-1), b.numpy().reshape(-1))
     img, bm = rt.trace_image(dense, rt.Camera(), cfg, 1)
-    assert np.abs(ranks[1]["dense"][0] - img.numpy()).max() <= 1e-6
-    assert np.abs(ranks[1]["dense"][1] - bm.numpy()).max() <= 1e-6
+    np.testing.assert_array_equal(ranks[1]["dense"][0], img.numpy())
+    np.testing.assert_array_equal(ranks[1]["dense"][1], bm.numpy())
     assert float(img[..., :3].std()) > 0.01
+
+
+@pytest.fixture(scope="module")
+def split_one_process():
+    """The ranks' ``split_frames`` on one process, on the whole frame's
+    tables: the three frames' images, the final state's history, the two
+    progressive passes' images and weight sums."""
+    dt = seeded()
+    cfg = rt.RenderConfig(**SPLIT_CFG)
+    tabs = rt.build_cand_tables(dt, SPLIT_CAMERA, cfg)
+    gl = rt.seg_max_count(dt, tabs)
+    st = rt.init_frame_state(64, 64, device="cpu")
+    frames = []
+    for tables in (tabs, tabs, None):
+        img, st = rt.render_frame(dt, SPLIT_CAMERA, st, cfg, cand_tables=tables,
+                                  gather_len=None if tables is None else gl)
+        frames.append(img.numpy())
+    out = {"frames": frames, "prev": st.prev_image.numpy(), "frame": st.frame, "progressive": []}
+    st = rt.init_frame_state(64, 64, device="cpu")
+    prog = rt.init_progressive_state(64, 64, device="cpu")
+    for reset in (True, False):
+        img, st, prog = rt.render_frame_progressive(dt, SPLIT_CAMERA, st, prog, cfg, reset,
+                                                    cand_tables=tabs, gather_len=gl)
+        out["progressive"].append((img.numpy(), prog.weight_sum.numpy()))
+    return out
+
+
+def _split(request, n):
+    """Every rank's ``split_frames`` record on n ranks."""
+    return [r["split"] for r in request.getfixturevalue("ranks" if n == 2 else "four_ranks")]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_by_work_cuts_whole_tile_rows(request, n):
+    """The trace split by work where the top rows cost three times the
+    others (``split_cost_ms`` in the timer's place): every rank holds the
+    same cuts, from row 0 to the frame's 64, on tile-row boundaries (2
+    rows), each range non-empty, so the ranges cover every row once; they
+    are not the equal bands (the split engaged), and the costliest range
+    costs at most one tile row more than the best cut into whole tile rows
+    does; narrowing the lists keeps them; a rank traces its range on those
+    tables and its output band on in-frame tables."""
+    got = _split(request, n)
+    assert tc.tile_rows(seeded(), rt.RenderConfig(**SPLIT_CFG)) == 2
+    cuts = got[0]["cuts"]
+    equal = tuple(range(0, 65, 64 // n))
+    assert all(g["cuts"] == cuts and g["narrow_cuts"] == (cuts, cuts) and g["narrowed"]
+               for g in got)
+    assert len(cuts) == n + 1 and cuts[0] == 0 and cuts[-1] == 64 and cuts != equal
+    assert all(a < b and a % 2 == 0 for a, b in zip(cuts, cuts[1:]))
+    cost = [split_cost_ms(None, None, None, r, r + 2, None) for r in range(0, 64, 2)]
+    best = sharded._minmax_partition(cost, n)
+    least = max(sum(cost[a:b]) for a, b in zip(best, best[1:]))
+    assert max(split_cost_ms(None, None, None, a, b, None)
+               for a, b in zip(cuts, cuts[1:])) <= least + max(cost)
+    for rank, g in enumerate(got):
+        assert [rows for _, rows, _ in g["frames"]] == (
+            [(cuts[rank], cuts[rank + 1])] * 2 + [(equal[rank], equal[rank + 1])])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_by_work_frames_bitwise(request, n, split_one_process):
+    """On the split: two chained frames (the blur on its band after the
+    exchange), a frame on in-frame tables (equal ranges), every rank's band
+    of the final state, and two progressive passes (the accumulator by
+    output band), all bitwise one process's."""
+    got = _split(request, n)
+    want = split_one_process
+    rows = 64 // n
+    for rank, g in enumerate(got):
+        for (img, _, _), w in zip(g["frames"], want["frames"]):
+            np.testing.assert_array_equal(img, w)
+        prev, frame = g["state"]
+        np.testing.assert_array_equal(prev, want["prev"][rank * rows : rank * rows + rows])
+        assert frame == want["frame"] == 3
+        for (img, wsum), (w_img, w_wsum) in zip(g["progressive"], want["progressive"]):
+            np.testing.assert_array_equal(img, w_img)
+            np.testing.assert_array_equal(wsum, w_wsum)
+    assert float(want["frames"][0][..., :3].std()) > 0.01
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_by_work_exchange(request, n):
+    """A frame on the split's tables logs one "rebalance" exchange before
+    the blur's halo: n strips of k rows x 64 pixels x 5 float32, k the most
+    rows any rank traced outside its band, and the rows of this rank's band
+    that other ranks traced; a frame on in-frame tables logs none."""
+    got = _split(request, n)
+    cuts, rows = got[0]["cuts"], 64 // n
+    own = [max(0, min(cuts[j + 1], (j + 1) * rows) - max(cuts[j], j * rows)) for j in range(n)]
+    k = max(cuts[j + 1] - cuts[j] - own[j] for j in range(n))
+    assert k > 0
+    for rank, g in enumerate(got):
+        for _, _, log in g["frames"][:2]:
+            assert log[0] == ("rebalance", n * k * 64 * 5 * 4, rows - own[rank])
+            assert [kind for kind, _, _ in log] == ["rebalance", "halo"]
+        assert [kind for kind, _, _ in g["frames"][2][2]] == ["halo"]
+
+
+def test_split_timer_times_a_trace():
+    """``sharded._trace_ms``, the split's timer: a positive wall time in ms
+    of a trace of the rows on their tables (on the CPU, the plain
+    version)."""
+    dt = seeded()
+    cfg = rt.RenderConfig(**SPLIT_CFG)
+    tabs = tc.build_cand_tables(dt, SPLIT_CAMERA, cfg, 0, 2 * 64)
+    ms = sharded._trace_ms(dt, SPLIT_CAMERA, cfg, 0, 2, tabs)
+    assert isinstance(ms, float) and 0.0 < ms < 60e3
 
 
 def test_progressive_sharded_bitwise(ranks):

@@ -5,6 +5,7 @@ only torch, numpy and the port (no JAX): the scene XMLs come in as
 arguments, and every comparison with one process or with the JAX package
 stays in the test process."""
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -64,6 +65,68 @@ def band_state(mesh, w=64, h=64):
 # others rest.
 MOVES = [(rt.Camera(0.9), (1.0, 0.9), "unet"), (rt.Camera(0.9), None, "unet"),
          (rt.Camera(0.81), (0.9, 0.81), "analytic"), (rt.Camera(0.81), None, "off")]
+
+
+# The trace split by work (sharded.build_cand_tables_sharded): the seeded
+# scene zoomed out into the frame's top rows; 2-row tiles (rays_per_block
+# 128), so the split has 32 tile rows to cut; the blur on, the denoiser off.
+SPLIT_CAMERA = rt.Camera(2.0, 0.0, -40.0)
+SPLIT_CFG = dict(rays_per_pixel=32, rays_per_block=128, use_denoiser=False)
+
+
+def split_cost_ms(scene, camera, config, r0, r1, tables):
+    """A fixed cost by row for the split's timer (``split_by_cost``): the
+    first 20 rows three times the others.  The plain trace costs about the
+    same on every row, and its times on a host that runs other tests are
+    noise, so the real timer would cut at random; the card's cases but
+    "split" run the real one."""
+    return float(sum(3.0 if r < 20 else 1.0 for r in range(r0, r1)))
+
+
+@contextlib.contextmanager
+def split_by_cost():
+    """``split_cost_ms`` in the split's timer's place (``sharded._trace_ms``)."""
+    timer, sharded._trace_ms = sharded._trace_ms, split_cost_ms
+    try:
+        yield
+    finally:
+        sharded._trace_ms = timer
+
+
+def split_frames(mesh, gather):
+    """The seeded scene at SPLIT_CAMERA: two chained frames on hoisted
+    tables (split by work as ``split_cost_ms`` times the rows, narrowed),
+    then one on in-frame tables, each
+    with its gathered image, this rank's traced rows and its exchange log;
+    the tables' cuts before and after narrowing (to the certified length,
+    and to 8 slots, which cuts the lists); the final band state; two
+    progressive passes (reset, then add) on the hoisted tables."""
+    dt = seeded()
+    cfg = rt.RenderConfig(**SPLIT_CFG)
+    with split_by_cost():
+        tabs = sharded.build_cand_tables_sharded(mesh, dt, SPLIT_CAMERA, cfg)
+    gl = sharded.seg_max_count_sharded(mesh, dt, tabs)
+    narrow = trace_cuda.narrow_cand_tables(tabs, gl)
+    short = trace_cuda.narrow_cand_tables(tabs, 8)  # lists cut, the fields kept
+    out = {"cuts": tabs.row_cuts, "narrow_cuts": (narrow.row_cuts, short.row_cuts),
+           "narrowed": short.ids.shape[-1] == 8 < tabs.ids.shape[-1], "frames": []}
+    st = band_state(mesh)
+    for tables in (narrow, narrow, None):
+        rows = sharded.trace_rows(mesh, dt, tables)
+        img, st = sharded.render_frame_sharded(mesh, dt, SPLIT_CAMERA, st, cfg,
+                                               cand_tables=tables,
+                                               gather_len=None if tables is None else gl)
+        log = list(sharded.EXCHANGE_LOG)
+        out["frames"].append((gather(img), rows, log))
+    out["state"] = (st.prev_image.numpy(), st.frame)
+    st = band_state(mesh)
+    prog = rt.init_progressive_state(64, 64 // mesh.size(), device="cpu")
+    out["progressive"] = []
+    for reset in (True, False):
+        img, st, prog = sharded.render_frame_progressive_sharded(
+            mesh, dt, SPLIT_CAMERA, st, prog, cfg, reset, cand_tables=narrow, gather_len=gl)
+        out["progressive"].append((gather(img), gather(prog.weight_sum)))
+    return out
 
 
 def move_config(kind):
@@ -157,6 +220,7 @@ def rank_work(rank, world, xmls):
     except ValueError as e:
         out["odd_height"] = str(e)
     band6 = scene(xmls["band6"])
+    out["split"] = split_frames(mesh, gather)
     out["band6_trace"] = gather(sharded.trace_image_sharded(mesh, band6, cam,
                                                             rt.RenderConfig(**TRACE_CFG))[0])
     st = band_state(mesh, 64, 68)
@@ -175,8 +239,8 @@ def rank_work(rank, world, xmls):
 def rank_work_wide_halo(rank, world):
     """Four ranks, bands of 16 rows: the UNet's halo (20 rows) takes rows
     from two ranks.  The seeded sequence's first frames with the UNet (its
-    frame 0, a resting frame), then MOVES; and two UNet frames of the
-    seeded scene at 64 x 68, bands of 17 rows."""
+    frame 0, a resting frame), then MOVES; two UNet frames of the seeded
+    scene at 64 x 68, bands of 17 rows; and ``split_frames``."""
     mesh = sharded.make_mesh(world, device_type="cpu")
     gather = lambda t: sharded.gather_rows(mesh, t).numpy()  # noqa: E731
     dt = seeded()
@@ -197,7 +261,7 @@ def rank_work_wide_halo(rank, world):
         tall_log = list(sharded.EXCHANGE_LOG)
         tall_frames.append(gather(img))
     return {"frames": frames, "logs": logs, "moves": moves, "moved_state": state,
-            "tall_frames": tall_frames, "tall_log": tall_log}
+            "tall_frames": tall_frames, "tall_log": tall_log, "split": split_frames(mesh, gather)}
 
 
 def fail_on_rank_1(rank, world):
@@ -215,12 +279,15 @@ def fail_on_rank_1(rank, world):
 def band_sequences(mesh, device, cases, net):
     """The row-band cases on ``device``: this rank's band (``mesh``) or the
     whole frame (``mesh`` None).  ``cases``: name -> (scene XML,
-    RenderConfig keywords).  Each chains frames on hoisted tables narrowed
-    to their largest count ("dense" one, the others two), with ``net``
-    where the denoiser is on; then "unet" takes a zoom step and "off" two
-    progressive passes ("progressive").  Returns {name: a record a frame}
-    (host data), "reach" (the largest halo a stage reads) and "wedge_shift"
-    by case."""
+    RenderConfig keywords, camera).  Each chains frames on hoisted tables
+    narrowed to their largest count ("dense" one, the others two; the
+    tables, and the sharded split's timed launches, come before the launch
+    counters are reset; "split" is timed by ``split_by_cost``, the others
+    by the real timer), with
+    ``net`` where the denoiser is on; then "unet" takes a zoom step and
+    "off" two progressive passes ("progressive").  Returns {name: a record
+    a frame} (host data), "reach" (the largest halo a stage reads),
+    "wedge_shift" and "cuts" (the tables' ``row_cuts``) by case."""
     if mesh is None:
         tables, count, frame = rt.build_cand_tables, rt.seg_max_count, rt.render_frame
         progressive, zoom = rt.render_frame_progressive, rt.add_zoom_flow
@@ -233,7 +300,7 @@ def band_sequences(mesh, device, cases, net):
         zoom = functools.partial(sharded.add_zoom_flow_sharded, mesh)
         band_state = functools.partial(sharded.frame_state_sharded, mesh)
         band_rows = lambda h: h // mesh.size()  # noqa: E731
-    out = {"reach": {}, "wedge_shift": {}}
+    out = {"reach": {}, "wedge_shift": {}, "cuts": {}}
 
     def record(name, img, st, moved=False):
         out.setdefault(name, []).append(dict(
@@ -246,16 +313,20 @@ def band_sequences(mesh, device, cases, net):
         gl = count(dt, tabs)
         return (tabs if gl is None else trace_cuda.narrow_cand_tables(tabs, gl)), gl
 
-    cam = rt.Camera()
-    for name, (xml, kw) in cases.items():
+    for name, (xml, kw, cam) in cases.items():
         dt = rt.build_device_scene(rt.load_scene_from_string(xml), device=device)
         cfg = rt.RenderConfig(**kw)
         den = net if cfg.use_denoiser else None
         radius = blur_radius(dt.max_blur)
         out["reach"][name] = max(radius, tdn.band_halo(net)) if den is not None else radius
-        tabs, gl = hoisted(dt, cam, cfg)
+        with split_by_cost() if name == "split" else contextlib.nullcontext():
+            tabs, gl = hoisted(dt, cam, cfg)
+        if name == "unet":  # hoisted before the frames count their launches, as tabs
+            zcam = rt.Camera(zoom_factor=0.9)
+            ztabs, zgl = hoisted(dt, zcam, cfg)
         n_wedges = trace_cuda._grid_geom(dt, cfg, dt.width, dt.width * dt.height)[3]
         out["wedge_shift"][name] = trace_cuda.table_wedge_shift(tabs, n_wedges)
+        out["cuts"][name] = tabs.row_cuts
         st = band_state(rt.init_frame_state(dt.width, dt.height, device=device))
         trace_cuda.reset_launch_count()
         conv_cuda.reset_launch_count()
@@ -263,8 +334,6 @@ def band_sequences(mesh, device, cases, net):
             img, st = frame(dt, cam, st, cfg, denoiser=den, cand_tables=tabs, gather_len=gl)
             record(name, img, st)
         if name == "unet":
-            zcam = rt.Camera(zoom_factor=0.9)
-            ztabs, zgl = hoisted(dt, zcam, cfg)
             moved = dataclasses.replace(st, flow=zoom(st.flow, 1.0, 0.9))
             img, st = frame(dt, zcam, moved, cfg, denoiser=den, cand_tables=ztabs, gather_len=zgl)
             record(name, img, st, moved=not moved.flow_is_zero)
