@@ -68,7 +68,8 @@
 //  * chunk lists only (no segment lists): the chunk walk from an empty
 //    state.
 // The counting instantiation (trace_kernel<true, true>) also adds per-pixel
-// counters of the walk; it is launched outside timed windows only.
+// counters of the walk and of the portal bounces' sweeps; it is launched
+// outside timed windows only.
 //
 // Dropped TPU workarounds: one-hot MXU gathers, bf16 hi/lo splits,
 // transposed/128-lane layouts, the packed (t, id) sort key and the one-hot
@@ -130,7 +131,8 @@ constexpr int SEG_CHUNK = 64;  // segments per chunk of the chunk lists
 // Per-pixel counters of the counting instantiation (trace_cuda.STAT_NAMES).
 constexpr int STAT_RAYS = 0, STAT_SLOTS = 1, STAT_FALLBACK = 2, STAT_CHUNKS = 3,
               STAT_CHUNK_PAIRS = 4, STAT_CLEAN = 5, STAT_GRAZE = 6, STAT_WARP_SLOTS = 7,
-              N_STATS = 8;
+              STAT_BOUNCE_RAYS = 8, STAT_SWEEP_SLOTS = 9, STAT_SWEEP_WARP_SLOTS = 10,
+              N_STATS = 11;
 
 // refine.py constants
 constexpr int BISECT_ITERS = 5;
@@ -758,7 +760,7 @@ __global__ void __launch_bounds__(BLOCK, DIST ? MIN_BLOCKS_DIST : MIN_BLOCKS_ID)
 
 #pragma unroll
   for (int i = 0; i < 5; ++i) sums[i][t] = 0.0f;
-  int st[N_STATS] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int st[N_STATS] = {};
   for (int w = 0; w < P.n_wedges; ++w) {
     // the table cell: wedge-coarsened tables share one entry among 2^shift
     // adjacent wedges; raygen below keeps the fine wedge
@@ -825,6 +827,15 @@ __global__ void __launch_bounds__(BLOCK, DIST ? MIN_BLOCKS_DIST : MIN_BLOCKS_ID)
             walk_all<true, false>(P, buf, sp, alive, r, b, lane);
           } else {
             walk_all<false, false>(P, buf, sp, alive, r, b, lane);
+          }
+          if (STATS && bounce > 0) {
+            // a bounce sweeps every sub-segment with the whole warp: each
+            // lane that holds a pixel counts the sweep's slots
+            if (valid) st[STAT_SWEEP_WARP_SLOTS] += P.n_sub;
+            if (alive) {
+              st[STAT_BOUNCE_RAYS] += 1;
+              st[STAT_SWEEP_SLOTS] += P.n_sub;
+            }
           }
         }
         if (!alive) continue;

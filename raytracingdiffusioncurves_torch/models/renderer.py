@@ -87,7 +87,7 @@ def trace_image(
         if cand_tables is None:
             with span("trace.tables", frame=frame):
                 cand_tables = trace_cuda.build_cand_tables(scene, camera, config)
-        with span("trace.launch", frame=frame):
+        with span("trace.launch", frame=frame, n_traces=trace_cuda.n_traces(scene, config)):
             csum, wsum, bsum = trace_cuda.trace_sums_flat(
                 scene, camera, config, frame, 0, h * w, cand_tables, gather_len
             )
@@ -293,7 +293,7 @@ def render_frame_progressive(
             if cand_tables is None:
                 with span("trace.tables", frame=f):
                     cand_tables = trace_cuda.build_cand_tables(scene, camera, config)
-            with span("trace.launch", frame=f):
+            with span("trace.launch", frame=f, n_traces=trace_cuda.n_traces(scene, config)):
                 csum, wsum, bsum = trace_cuda.trace_sums_flat(
                     scene, camera, config, f, 0, h * w, cand_tables, gather_len
                 )

@@ -58,7 +58,7 @@ _PLAIN_CHUNK_PAIRS = (1 << 21, 1 << 25)
 # writes them.
 STAT_NAMES = (
     "live_rays", "list_slots", "fallback_rays", "chunks", "chunk_pairs",
-    "clean_hits", "grazes", "warp_slots",
+    "clean_hits", "grazes", "warp_slots", "bounce_rays", "sweep_slots", "sweep_warp_slots",
 )
 # The kernel's instantiations, in rtdc_trace_info's order.
 KERNEL_INSTANCES = ("id_order", "dist_order", "dist_order_stats")
@@ -181,7 +181,9 @@ def _grid_geom(scene: dev.DeviceScene, config: RenderConfig, w: int, n_px: int):
     return R, pxb, sw, n_wedges, tile_h, tiles_x, tiles_y, tiles_x * tiles_y
 
 
-def _n_traces(scene: dev.DeviceScene, config: RenderConfig) -> int:
+def n_traces(scene: dev.DeviceScene, config: RenderConfig) -> int:
+    """Traces of a ray's portal chain: the primary and up to
+    ``max_trace_depth`` continuations where the scene has portals."""
     return (config.max_trace_depth + 1) if scene.has_portals else 1
 
 
@@ -639,8 +641,12 @@ def trace_walk_stats(
     segment) pairs tested there, rays whose two chains agreed on the
     winner, rays shaded through root isolation, and per ray the list slots
     of the longest list walk in its warp (the warp walks that long: list
-    slots / warp slots is the share of lane-slots that did work).  For
-    measurement outside any timed window (one host sync); CUDA only."""
+    slots / warp slots is the share of lane-slots that did work); then the
+    portal bounces: continuation rays traced (bounce >= 1), the
+    sub-segments they tested (every one: bounces walk no list), and the
+    lane-slots of the warps' bounce sweeps (each sweep n_sub slots for every
+    lane that holds a pixel).  For measurement outside any timed window (one
+    host sync); CUDA only."""
     if scene.device.type != "cuda":
         raise RuntimeError("the statistics launch runs only on a CUDA device")
     if cand_tables is None or not cand_tables.dist_ordered:
@@ -850,7 +856,7 @@ def launch_args(scene, camera, config, frame, px_start, n_px, cand_tables, out, 
         float(camera.zoom_factor), float(camera.offset_x), float(camera.offset_y),
         int(frame) & 0xFFFFFFFF, int(config.seed) & 0xFFFFFFFF,
         int(config.use_aa), int(config.diffusion_curve_save),
-        int(config.exact_silhouettes), _n_traces(scene, config),
+        int(config.exact_silhouettes), n_traces(scene, config),
         float(config.min_hit_distance), ctypes.c_void_p(stream),
     )
 

@@ -308,15 +308,19 @@ def build_device_scene(
 
     Recorded as the span ``scene.build_device`` with the attributes
     ``sub_segments``, ``endcap_sub_segments`` (those of the curves' endcap
-    loops) and ``weighted_curves`` (curves whose weight or weight-degree
-    table leaves the defaults 1 and 0.5)."""
+    loops), ``weighted_curves`` (curves whose weight or weight-degree
+    table leaves the defaults 1 and 0.5), ``portal_curves`` (curves that
+    connect to another) and ``portal_sub_segments`` (theirs)."""
     with timing.span("scene.build_device") as sp:
         out, subs = _build_device_scene(scene, flatten_subdivisions, max_sagitta,
                                         min_subdivisions, device)
         if sp is not timing.NOOP:  # counted only while the recorder is on
+            portal = scene.curve_connect >= 0
             sp.set(sub_segments=out.n_sub,
                    endcap_sub_segments=int(subs[endcap_segments(scene)].sum()),
-                   weighted_curves=weighted_curves(scene))
+                   weighted_curves=weighted_curves(scene),
+                   portal_curves=int(portal.sum()),
+                   portal_sub_segments=int(subs[portal[scene.curve_map]].sum()))
         return out
 
 

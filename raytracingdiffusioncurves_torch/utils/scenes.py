@@ -17,6 +17,9 @@ per-curve weight paths.
 ``dense_scene_xml`` draws line art of the density of the reference's
 lady_bug and dolphin scenes (over a thousand, and several thousand,
 sub-segments), which take the capped, distance-ordered candidate lists.
+
+``portal_dense_scene_xml`` is the lady_bug drawing with one pair of portal
+curves, the reference's portal extension at a dense scene's size.
 """
 
 from __future__ import annotations
@@ -214,7 +217,7 @@ def _aphid(centre, size, heading, rng):
 
 
 def dense_scene_xml(seed: int = 0, width: int = 1920, height: int = 1088,
-                    kind: str = "lady_bug") -> str:
+                    kind: str = "lady_bug", colour_seed: int | None = None) -> str:
     """Orzan curve_set XML of a seeded line drawing of a dense-scene class
     (geometry on a unit canvas scaled to ``width`` x ``height``; no portals;
     random side colours, nonzero blur).  A frame just inside the canvas
@@ -230,10 +233,17 @@ def dense_scene_xml(seed: int = 0, width: int = 1920, height: int = 1088,
     that pass beside it look past the list's horizon.
     ``kind="dolphin"``: a field of scales between wavy strands: 460 cubic
     segments, 4096 < s_pad <= 9216 (4-level lists of 512 slots, the
-    dense block geometry)."""
+    dense block geometry).
+
+    ``colour_seed``: None draws the side colours from ``seed``'s stream
+    with the geometry; a seed draws them from a stream of their own, the
+    geometry stream making its colour draws all the same, so the geometry
+    and blur stay ``seed``'s (the benchmark's frozen copy,
+    ``perfbench/scenes.py``, always splits them so)."""
     if kind not in ("lady_bug", "dolphin"):
         raise ValueError(f"kind must be 'lady_bug' or 'dolphin', got {kind!r}")
     rng = np.random.default_rng(seed)
+    colours = None if colour_seed is None else np.random.default_rng(colour_seed)
     size = np.array([width, height], np.float64)
     unit = float(min(width, height))
     centre = 0.5 * size
@@ -304,6 +314,8 @@ def dense_scene_xml(seed: int = 0, width: int = 1920, height: int = 1088,
         # swaps back (RenderConfig.diffusion_curve_save, the default).
         pts = [(float(np.clip(y, 0.0, height)), float(np.clip(x, 0.0, width))) for x, y in pts]
         cols = rng.integers(0, 256, (4, 3))
+        if colours is not None:
+            cols = colours.integers(0, 256, (4, 3))
         blur = rng.uniform(0.5, 2.0, 2)
         curves.append(
             _curve_xml(
@@ -314,3 +326,47 @@ def dense_scene_xml(seed: int = 0, width: int = 1920, height: int = 1088,
             )
         )
     return _document(width, height, curves)
+
+
+# The random stream of portal_dense_scene_xml's portal pair: (seed,
+# PORTAL_STREAM), apart from the drawing's (seed).
+PORTAL_STREAM = 2
+# The portal pair, each curve's ends in image space (column, row) as shares
+# of the canvas: A in the left margin beside the head, B in the right
+# margin below the aphid.
+PORTAL_PAIR = (((0.06, 0.30), (0.06, 0.80)), ((0.90, 0.30), (0.90, 0.80)))
+
+
+def portal_dense_scene_xml(seed: int = 0, width: int = 1920, height: int = 1080,
+                           colour_seed: int | None = None) -> str:
+    """The lady_bug drawing of ``dense_scene_xml(seed, width, height,
+    "lady_bug", colour_seed)`` with the reference's portal extension as its
+    PortalDemo.xml uses it: two straight one-cubic curves appended
+    (``PORTAL_PAIR``), each ``connects`` to the other, with the default
+    weights.  Their side colours (in [0, 255]) and blur (in [0.5, 2.0])
+    come from streams of their own, ``(seed, PORTAL_STREAM)`` and, where
+    ``colour_seed`` is given, ``(colour_seed, PORTAL_STREAM)`` for the
+    colours, split as the drawing's are; so the drawing is
+    ``dense_scene_xml``'s exactly.  Rays that meet a portal continue from
+    the other one (``RenderConfig.max_trace_depth`` bounces), through the
+    trace's full sweep of every sub-segment."""
+    doc = dense_scene_xml(seed, width, height, "lady_bug", colour_seed)
+    head, body = doc.split(">", 1)
+    n = body.count("<curve ")
+    rng = np.random.default_rng([seed, PORTAL_STREAM])
+    colours = None if colour_seed is None else np.random.default_rng([colour_seed, PORTAL_STREAM])
+    size = np.array([width, height], np.float64)
+    portals = []
+    for k, ends in enumerate(PORTAL_PAIR):
+        a, b = (np.asarray(e, np.float64) * size for e in ends)
+        # an Orzan save stores (row, column), as dense_scene_xml's curves
+        pts = [(float(p[1]), float(p[0])) for p in (a + (b - a) * i / 3.0 for i in range(4))]
+        cols = rng.integers(0, 256, (4, 3))
+        if colours is not None:
+            cols = colours.integers(0, 256, (4, 3))
+        blur = rng.uniform(0.5, 2.0, 2)
+        portals.append(_curve_xml(pts, left=(tuple(cols[0]), tuple(cols[1])),
+                                  right=(tuple(cols[2]), tuple(cols[3])), blur=tuple(blur),
+                                  connects=n + 1 - k))
+    head = head.replace(f'nb_curves="{n}"', f'nb_curves="{n + 2}"')
+    return head + ">" + body[: -len("</curve_set>")] + "".join(portals) + "</curve_set>"

@@ -33,7 +33,9 @@ from raytracingdiffusioncurves_torch.ops import blur as tblur
 from raytracingdiffusioncurves_torch.ops import conv_cuda as cc
 from raytracingdiffusioncurves_torch.ops import trace_cuda as tc
 from raytracingdiffusioncurves_torch.parallel import sharded
-from raytracingdiffusioncurves_torch.utils.scenes import dense_scene_xml, seeded_scene_xml
+from raytracingdiffusioncurves_torch.models.renderer import normalize_sums
+from raytracingdiffusioncurves_torch.utils.scenes import (dense_scene_xml, portal_dense_scene_xml,
+                                                          seeded_scene_xml)
 from raytracingdiffusioncurves_torch.viewer_http import HttpViewer
 
 from torch_sharded_ranks import (ROOT, WEIGHTS, band_sequences, rank_work_on_one_card,
@@ -405,3 +407,85 @@ def test_data_parallel_train_step_on_one_card(cuda, card_ranks):
     for n, g in grads.items():
         assert np.array_equal(g0[n], g1[n]), n
         assert np.linalg.norm(g0[n] - g) <= 1e-2 * np.linalg.norm(g), n
+
+
+# The dense portal scene at its cell's size (1920 x 1080, 256 rpp): a band
+# of 8 rows through both portals (rows 324-864), on the band's own
+# distance-ordered tables.
+PORTAL_BAND = (528, 8)
+
+
+@pytest.fixture(scope="module")
+def portal_band():
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    cuda = torch.device("cuda")
+    w, h = 1920, 1080
+    xml = portal_dense_scene_xml(0, w, h, 2**40 + 7)
+    dt = rt.build_device_scene(rt.load_scene_from_string(xml), device=cuda)
+    cfg = rt.RenderConfig(rays_per_pixel=256, use_denoiser=False)
+    cam = rt.Camera()
+    r0, rows = PORTAL_BAND
+    px_start, n_px = r0 * w, rows * w
+    tabs = tc.build_cand_tables(dt, cam, cfg, px_start, n_px)
+    return dt, cfg, cam, px_start, n_px, tabs
+
+
+def test_portal_band_kernel_matches_full_sweep_and_plain(portal_band):
+    """The kernel on the band's tables is its full sweep bit for bit; against
+    the plain version (on the card) the bar of the dense lists' cases
+    (tests/test_torch_cuda.py::_assert_parity): fewer than 3e-5 of the
+    normalized values more than 1e-3 apart, mean below 1e-4."""
+    dt, cfg, cam, px_start, n_px, tabs = portal_band
+    assert dt.has_portals and tc.n_traces(dt, cfg) == 3
+    assert tabs.dist_ordered and tabs.chunk_ids is not None
+    tc.reset_launch_count()
+    kern = tc.trace_sums_flat(dt, cam, cfg, 5, px_start, n_px, tabs)
+    assert tc.LAUNCHES == 1
+    full = tc.trace_sums_flat(dt, cam, cfg, 5, px_start, n_px, None)
+    for a, b in zip(kern, full):
+        assert torch.equal(a, b)
+    plain = tc.trace_sums_plain(dt, cam, cfg, 5, px_start, n_px, tabs)
+    rows, w = n_px // dt.width, dt.width
+    (ik, bk), (ip, bp) = (normalize_sums(c.reshape(rows, w, 3), s.reshape(rows, w),
+                                         b.reshape(rows, w), cfg) for c, s, b in (kern, plain))
+    d = (ik - ip).abs()
+    assert not torch.isnan(ik).any()
+    assert float((d > 1e-3).float().mean()) < 3e-5 and float(d.mean()) < 1e-4
+    assert float(((bk - bp).abs() > 1e-3).float().mean()) < 3e-5
+    # the bounces reach the sums: the kernel without them differs
+    flat = tc.trace_sums_flat(dt, cam, dataclasses.replace(cfg, max_trace_depth=0), 5, px_start,
+                              n_px, tabs)
+    assert not torch.equal(flat[1], kern[1])
+
+
+def test_portal_counters_count_the_bounces_sweeps(portal_band):
+    """The counting launch's bounce counters: every continuation ray tests
+    every sub-segment; a sweep's lane-slots count each lane of the warp that
+    holds a pixel, at least the live rays' and at most a warp's 32 lanes
+    for each; without bounces (depth 0) they read 0."""
+    dt, cfg, cam, px_start, n_px, tabs = portal_band
+    st = tc.trace_walk_stats(dt, cam, cfg, 5, px_start, n_px, tabs)
+    assert set(st) == set(tc.STAT_NAMES)
+    assert 0 < st["bounce_rays"] < st["live_rays"]
+    assert st["sweep_slots"] == st["bounce_rays"] * dt.n_sub
+    assert st["sweep_warp_slots"] % dt.n_sub == 0
+    assert st["sweep_slots"] <= st["sweep_warp_slots"] <= 32 * st["sweep_slots"]
+    flat = tc.trace_walk_stats(dt, cam, dataclasses.replace(cfg, max_trace_depth=0), 5, px_start,
+                               n_px, tabs)
+    assert flat["bounce_rays"] == flat["sweep_slots"] == flat["sweep_warp_slots"] == 0
+    for k in ("live_rays", "list_slots", "warp_slots"):
+        assert flat[k] == st[k], k
+
+
+# What the build makes of the timed instances (registers per thread, spilled
+# bytes per thread, blocks per SM at 128 threads): the same as before the
+# counting instance gained the bounce counters.
+TIMED_INSTANCES = {"id_order": (64, 120, 8), "dist_order": (72, 104, 7)}
+
+
+def test_timed_trace_instances_are_unchanged(cuda):
+    info = {i["name"]: (i["registers"], i["local_bytes"], i["blocks_per_sm"])
+            for i in tc.trace_kernel_info()}
+    for name, want in TIMED_INSTANCES.items():
+        assert info[name] == want, name

@@ -23,7 +23,9 @@ import pytest
 import raytracingdiffusioncurves_torch as rt
 from raytracingdiffusioncurves_torch.cli import main
 from raytracingdiffusioncurves_torch.utils import timing
-from raytracingdiffusioncurves_torch.utils.scenes import endcapped_scene_xml, seeded_scene_xml
+from raytracingdiffusioncurves_torch.utils.scenes import (endcapped_scene_xml,
+                                                          portal_dense_scene_xml,
+                                                          seeded_scene_xml)
 
 from conftest import make_scene_xml, simple_curve
 
@@ -159,12 +161,18 @@ def test_set_adds_attributes_inside_the_block(recorder):
 @pytest.mark.parametrize("make, rpp, attrs, tables", [
     # 256 sub-segments: uncapped distance-ordered lists
     (endcapped_scene_xml, 16, {"sub_segments": 256, "endcap_sub_segments": 128,
-                               "weighted_curves": 4},
+                               "weighted_curves": 4, "portal_curves": 0,
+                               "portal_sub_segments": 0},
      {"table_kind": "seg", "order": "dist", "cand_len": 256, "wedges": 4, "wedge_shift": 0}),
     # 128 sub-segments: slot mode
     (seeded_scene_xml, 128, {"sub_segments": 128, "endcap_sub_segments": 0,
-                             "weighted_curves": 0},
+                             "weighted_curves": 0, "portal_curves": 0, "portal_sub_segments": 0},
      {"table_kind": "seg", "order": "id", "cand_len": 128, "wedges": 32, "wedge_shift": 0}),
+    # 1536 sub-segments, 32 of them the portal pair's: capped lists
+    (portal_dense_scene_xml, 16, {"sub_segments": 1536, "endcap_sub_segments": 0,
+                                  "weighted_curves": 0, "portal_curves": 2,
+                                  "portal_sub_segments": 32},
+     {"table_kind": "seg", "order": "dist", "cand_len": 256, "wedges": 4, "wedge_shift": 0}),
 ])
 def test_setup_spans_carry_the_scenes_and_tables_counts(recorder, make, rpp, attrs, tables):
     dev = rt.build_device_scene(rt.load_scene_from_string(make(0, 64, 48)), device="cpu")
